@@ -1,4 +1,4 @@
-"""Flax params -> PyTorch ``state_dict``, 1:1.
+"""Flax params <-> PyTorch ``state_dict``, 1:1.
 
 The port's modules carry the flax names and shapes
 (:mod:`edl_tpu_torch.models.transformer`), so the conversion is a rename:
@@ -15,7 +15,9 @@ the param path ``layer_0/attn/q/kernel`` becomes the key
 
 A tree is a nested dict of numpy arrays (``state.params``, or the
 ``{"params": ...}`` dict ``Module.init`` returns), or an ``.npz`` whose
-keys are the ``/``-joined paths (:func:`save_npz` writes one).
+keys are the ``/``-joined paths (:func:`save_npz` writes one). Loading
+casts each array to its parameter's dtype (fp32 masters for training);
+:func:`to_flax` goes back, ``state_dict`` -> nested dict of numpy arrays.
 """
 
 from __future__ import annotations
@@ -50,6 +52,20 @@ def to_state_dict(params) -> Dict[str, torch.Tensor]:
         path.replace("/", "."): torch.from_numpy(np.array(arr, copy=True))
         for path, arr in flat.items()
     }
+
+
+def to_flax(state_dict) -> Dict:
+    """``state_dict`` (or ``named_parameters``) -> the flax param tree as
+    a nested dict of numpy arrays (bf16 tensors become fp32 arrays)."""
+    tree: Dict = {}
+    for key, tensor in dict(state_dict).items():
+        node = tree
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        t = tensor.detach().cpu()
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree
 
 
 def save_npz(params, path: str) -> None:

@@ -32,10 +32,12 @@ from edl_tpu_torch.utils.device import resolve_device
 
 # model kwargs and the sequence length each config is sized for
 CONFIGS = {
-    # tools/lm_bench.py "flagship": d_ff = int(1024 * 8 / 3 / 128) * 128
+    # tools/lm_bench.py "flagship": d_ff = int(1024 * 8 / 3 / 128) * 128;
+    # a serving teacher stores its weights in bf16 (the products are the same)
     "flagship": {
         "model": dict(vocab_size=32000, d_model=1024, num_heads=16,
-                      num_layers=12, d_ff=2688, dtype=torch.bfloat16),
+                      num_layers=12, d_ff=2688, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16),
         "seq": 2048,
     },
     # examples/distill_nlp.py build_lm(num_layers=4, d_model=128)

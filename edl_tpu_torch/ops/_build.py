@@ -3,8 +3,9 @@
 ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library, loaded with ``ctypes``. The build runs
 where the card is, from the sources in the checkout, into ``ops/build/``
-(gitignored); the library is named by the hash of its source and flags, so
-an edited kernel is rebuilt and an unchanged one is reused.
+(gitignored); the library is named by the hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and
+an unchanged one is reused. Different sources may build concurrently.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_locks = {}
+_locks_guard = threading.Lock()
+
+
+def _lock(name: str) -> threading.Lock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.Lock())
 
 
 def _nvcc() -> str:
@@ -47,10 +54,12 @@ def build(name: str) -> Tuple[str, str]:
     Raises if nvcc fails."""
     src = os.path.join(CSRC, name + ".cu")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as fh:
-        digest.update(fh.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     lib = os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest.hexdigest()[:16]))
-    with _lock:
+    with _lock(name):
         if os.path.exists(lib):
             return lib, ""
         os.makedirs(BUILD_DIR, exist_ok=True)

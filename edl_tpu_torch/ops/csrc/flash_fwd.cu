@@ -57,21 +57,13 @@
 // rescale of the accumulator run on every tile (no lazy rescale); K
 // fragments are re-read from shared memory by each of the four warps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math_constants.h>
-#include <stdint.h>
+
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // queries per CTA
-constexpr int BK = 64;         // keys per KV tile
-constexpr int NTHREADS = 128;  // 4 warps
 constexpr float MASK_VALUE = -1e30f;
-
-struct Strides {
-  long long b, h, t;
-};
 
 struct Params {
   const void* q;
@@ -104,61 +96,6 @@ __device__ __forceinline__ float masked(const Params& p, float s, int qi,
 }
 
 // ---------------------------------------------------------------- bf16 ----
-
-constexpr int LDS_PAD = 8;  // bf16 elements of row padding: conflict-free
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [r0, r0 + 64) of a [T, D] bf16 slab with row stride `st` into
-// shared [64][D + LDS_PAD]; rows at or past `rows` are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               long long st, int r0, int rows,
-                                               bool vec16) {
-  constexpr int LDS = D + LDS_PAD;
-  if (vec16) {
-    constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-    for (int idx = threadIdx.x; idx < 64 * CHUNKS; idx += NTHREADS) {
-      const int row = idx / CHUNKS;
-      const int ch = idx % CHUNKS;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (r0 + row < rows) {
-        val = *reinterpret_cast<const uint4*>(src + (r0 + row) * st + ch * 8);
-      }
-      *reinterpret_cast<uint4*>(dst + row * LDS + ch * 8) = val;
-    }
-  } else {
-    for (int idx = threadIdx.x; idx < 64 * D; idx += NTHREADS) {
-      const int row = idx / D;
-      const int d = idx % D;
-      dst[row * LDS + d] = r0 + row < rows ? src[(r0 + row) * st + d]
-                                           : __float2bfloat16(0.f);
-    }
-  }
-}
 
 template <int D>
 constexpr size_t smem_bytes_bf16() {
@@ -204,13 +141,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
   const int wr = warp * 16;
   uint32_t qf[KC][4];
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const __nv_bfloat16* base = sQ + (wr + g) * LDS + kc * 16 + 2 * tg;
-    qf[kc][0] = *reinterpret_cast<const uint32_t*>(base);
-    qf[kc][1] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS);
-    qf[kc][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qf[kc][3] = *reinterpret_cast<const uint32_t*>(base + 8 * LDS + 8);
-  }
+  for (int kc = 0; kc < KC; ++kc) load_a_frag<LDS>(qf[kc], sQ, wr, kc, g, tg);
 
   // rows qi[0] = wr + g and qi[1] = wr + g + 8 of the tile
   const int qi[2] = {q0 + wr + g, q0 + wr + g + 8};
@@ -238,10 +169,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
       const __nv_bfloat16* kb = sK + (nt * 8 + g) * LDS + 2 * tg;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb + kc * 16);
-        const uint32_t b1 =
-            *reinterpret_cast<const uint32_t*>(kb + kc * 16 + 8);
-        mma_bf16(s[nt], qf[kc], b0, b1);
+        mma_bf16(s[nt], qf[kc], ld32(kb + kc * 16), ld32(kb + kc * 16 + 8));
       }
     }
 
@@ -291,15 +219,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-      // lane -> row address of one 8x8 matrix: keys kc*16 + (lane & 7)
-      // (+8 for matrices 1, 3), columns +8 for matrices 2, 3
-      const __nv_bfloat16* vb = sV + (kc * 16 + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8) * LDS +
-                                ((lane >> 4) & 1) * 8;
+      pack_a_frag(pa, s, kc);
+      const __nv_bfloat16* vb = trans_row<LDS>(sV, kc * 16, lane);
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t vf[4];
@@ -363,12 +284,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.sv.b + hk * p.sv.h;
   float* o = static_cast<float*>(p.o) + b * p.so.b + h * p.so.h;
 
-  for (int idx = tid; idx < BQ * D; idx += NTHREADS) {
-    const int row = idx / D;
-    const int d = idx % D;
-    const int qi = q0 + row;
-    sQt[d * LDQ + row] = qi < p.Tq ? q[qi * p.sq.t + d] : 0.f;
-  }
+  load_tile_f32_t<D>(sQt, q, p.sq.t, q0, p.Tq, LDQ);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -487,13 +403,6 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
 }
 
 // ------------------------------------------------------------- launch ----
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
 
 template <int D>
 cudaError_t allow_smem_dtypes() {

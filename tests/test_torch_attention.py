@@ -14,10 +14,28 @@ is fp32 on both sides, 1e-5 (bf16 inputs multiply exactly in fp32).
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_persistent_compilation_cache():
+    """Compile this module's JAX code afresh: another test file in the same
+    worker may have armed JAX's persistent compilation cache with a key
+    function (``edl_tpu.train.aot.enable_portable_cache_keys``) that this
+    JAX version cannot call."""
+    from jax._src import compilation_cache
+
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", enabled)
+    compilation_cache.reset_cache()
+
 
 # the packages export an ``attention`` function that shadows the module
 jattn = importlib.import_module("edl_tpu.ops.attention")

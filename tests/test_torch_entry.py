@@ -12,6 +12,9 @@ import torch
 
 from edl_tpu_torch.distill import nlp_teacher
 from edl_tpu_torch.distill.serving import PredictClient, TorchPredictBackend
+from edl_tpu_torch.models.transformer import TransformerLM
+from edl_tpu_torch.tools import lm_bench
+from edl_tpu_torch.train import adamw, create_state
 from edl_tpu_torch.utils.device import resolve_device
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -76,6 +79,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
         TorchPredictBackend(lambda feeds: feeds)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         nlp_teacher.main(["--config", "small"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm_bench.main([])
+    model = TransformerLM(vocab_size=64, d_model=32, num_heads=2,
+                          num_layers=1, d_ff=64, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        create_state(model, 0, adamw(1e-3))
 
 
 def test_small_config_is_distill_nlp_teacher():

@@ -5,17 +5,26 @@ machine with the H100); here they skip. Whether a card is present is
 decided in the ``cuda`` fixture, never at import or collection, so every
 test worker collects the same tests.
 
-Tolerances (same inputs, kernel vs plain, on the card): bf16 o 2e-2 (the
-two round the output at different points; one bf16 ulp on [2, 4) is
-1.6e-2), fp32 o 1e-4, lse 1e-3 (fp32 summation order).
+Tolerances (same inputs, kernel vs plain, on the card): forward bf16 o
+2e-2 (the two round the output at different points; one bf16 ulp on
+[2, 4) is 1.6e-2), fp32 o 1e-4, lse 1e-3 (fp32 summation order).
+Backward dq/dk/dv: bf16 2e-2 * max(1, max|ref|) (the kernels round p and
+ds to bf16 before their products and the output to bf16, the plain
+version keeps fp32), fp32 1e-4 * max(1, max|ref|) (summation order).
 """
 
 import pytest
 import torch
 
 from edl_tpu_torch.ops.attention import (
+    _block_grads_reference,
+    _bwd_delta,
     attention,
     attention_reference_with_lse,
+    flash_attention,
+    flash_backward,
+    flash_bwd_dkv,
+    flash_bwd_dq,
     flash_forward,
 )
 
@@ -23,6 +32,7 @@ pytestmark = pytest.mark.gpu
 
 TOL_O = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 TOL_LSE = 1e-3
+TOL_GRAD = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 # (B, H, Hkv, Tq, Tk, D), causal, dtype
 CASES = [
@@ -52,6 +62,16 @@ def _inputs(shape, dtype, device, seed=0):
     return mk(b, h, tq, d), mk(b, h_kv, tk, d), mk(b, h_kv, tk, d)
 
 
+def _bwd_inputs(shape, causal, dtype, device, seed=0):
+    """q, k, v, dO and the forward's lse and delta (from the plain forward,
+    so that kernel and plain version see the same residuals)."""
+    q, k, v = _inputs(shape, dtype, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    g = torch.randn(q.shape, device=device, generator=gen).to(dtype)
+    o, lse = attention_reference_with_lse(q, k, v, causal=causal)
+    return q, k, v, g, lse, _bwd_delta(g, o)
+
+
 @pytest.mark.parametrize("shape,causal,dtype", CASES)
 def test_flash_forward_matches_plain(cuda, shape, causal, dtype):
     q, k, v = _inputs(shape, dtype, cuda)
@@ -66,8 +86,36 @@ def test_flash_forward_matches_plain(cuda, shape, causal, dtype):
     assert (lse - rlse).abs().max().item() <= TOL_LSE
 
 
+@pytest.mark.parametrize("shape,causal,dtype", CASES)
+def test_flash_backward_matches_plain(cuda, shape, causal, dtype):
+    q, k, v, g, lse, delta = _bwd_inputs(shape, causal, dtype, cuda)
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_backward(q, k, v, g, lse, delta, causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = _block_grads_reference(
+        q, k, v, g, lse, delta, causal, q.shape[-1] ** -0.5)
+    for name, a, ref, like in zip("q k v".split(), got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == like.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        err = (a.float() - ref.float()).abs().max().item()
+        limit = TOL_GRAD[dtype] * max(1.0, ref.float().abs().max().item())
+        assert err <= limit, "d%s: %.3g > %.3g" % (name, err, limit)
+
+
+def test_backward_writes_the_projection_layout(cuda):
+    """dq/dk/dv are [B, H, T, D] views of [B, T, H, D] memory, as o is."""
+    q, k, v, g, lse, delta = _bwd_inputs(
+        (1, 4, 2, 64, 64, 64), True, torch.bfloat16, cuda)
+    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal=True)
+    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal=True)
+    for t in (dq, dk, dv):
+        assert t.transpose(1, 2).is_contiguous()
+
+
 def test_strided_inputs_match_contiguous(cuda):
-    """The model hands the kernel [B, H, T, D] views of [B, T, H, D]."""
+    """The model hands the kernels [B, H, T, D] views of [B, T, H, D]."""
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in _inputs((2, 4, 4, 128, 128, 64), torch.bfloat16, cuda))
     assert not q.is_contiguous()
@@ -75,6 +123,18 @@ def test_strided_inputs_match_contiguous(cuda):
     o2, lse2 = flash_forward(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    g = torch.randn_like(o)
+    delta = _bwd_delta(g, o)
+    got = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+    want = flash_backward(q.contiguous(), k.contiguous(), v.contiguous(),
+                          g.contiguous(), lse, delta, True, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # dO without unit stride on head_dim is copied, not refused
+    g_t = g.transpose(2, 3).contiguous().transpose(2, 3)
+    assert g_t.stride(3) != 1
+    for a, b in zip(flash_backward(q, k, v, g_t, lse, delta, True, 0.125), want):
+        assert torch.equal(a, b)
 
 
 def test_unaligned_rows_match_aligned(cuda):
@@ -87,6 +147,24 @@ def test_unaligned_rows_match_aligned(cuda):
     o, lse = flash_forward(q_odd, k_odd, v_odd, causal=True)
     o2, lse2 = flash_forward(q, k, v, causal=True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    g = torch.randn_like(o)
+    delta = _bwd_delta(g, o)
+    got = flash_backward(q_odd, k_odd, v_odd, g, lse, delta, True, 0.125)
+    want = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_repeats_bit_for_bit(cuda, dtype):
+    """No atomics: two runs on the same inputs give the same bits."""
+    q, k, v, g, lse, delta = _bwd_inputs(
+        (2, 8, 2, 320, 320, 64), True, dtype, cuda, seed=5)
+    first = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+    for _ in range(3):
+        again = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_attention_on_cuda_runs_the_kernel(cuda):
@@ -96,14 +174,88 @@ def test_attention_on_cuda_runs_the_kernel(cuda):
     assert flash_forward.launches == before + 1
 
 
+def test_gradient_runs_each_backward_kernel_once(cuda):
+    q, k, v = (t.requires_grad_(True) for t in
+               _inputs((1, 2, 2, 64, 64, 64), torch.bfloat16, cuda))
+    before = (flash_forward.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    out = flash_attention(q, k, v, causal=True)
+    out.float().square().sum().backward()
+    after = (flash_forward.launches, flash_bwd_dq.launches,
+             flash_bwd_dkv.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               for t in (q, k, v))
+
+
 def test_unsupported_inputs_raise(cuda):
     q, k, v = _inputs((1, 2, 2, 64, 64, 64), torch.float16, cuda)
     with pytest.raises(TypeError):
         flash_forward(q, k, v)
+    g = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3], device=cuda)
+    with pytest.raises(TypeError):
+        flash_bwd_dq(q, k, v, g, lse, lse)
+    q, k, v = _inputs((1, 2, 2, 64, 64, 64), torch.bfloat16, cuda)
+    g = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="lse"):
+        flash_bwd_dkv(q, k, v, g, lse[..., :32], lse)
     q, k, v = _inputs((1, 2, 2, 64, 64, 48), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_forward(q, k, v)
-    q, k, v = _inputs((1, 2, 2, 64, 64, 64), torch.bfloat16, cuda)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash_forward(q, k, v)
+
+
+def test_lm_head_gradient_on_cuda(cuda):
+    """The LM head's CUDA product (bf16 operands, fp32 sums and logits) and
+    its backward (bf16 operands, fp32 sums) against fp32 autograd of the
+    same bf16 values; 2e-2 of max(1, max|ref|) for the bf16 gradients."""
+    from edl_tpu_torch.models.transformer import LMHead
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    head = LMHead(64, 1000, torch.float32, device=cuda)
+    with torch.no_grad():
+        head.kernel.normal_(0.0, 0.125, generator=gen)
+    x = torch.randn(2, 48, 64, device=cuda, generator=gen).to(torch.bfloat16)
+    x.requires_grad_(True)
+    w = torch.randn(2, 48, 1000, device=cuda, generator=gen)
+    logits = head(x)
+    assert logits.dtype == torch.float32
+    (logits * w).sum().backward()
+    x32 = x.detach().float().requires_grad_(True)
+    k32 = head.kernel.detach().to(torch.bfloat16).float().requires_grad_(True)
+    ref = x32 @ k32
+    (ref * w).sum().backward()
+    assert (logits - ref).abs().max().item() <= 1e-3
+    for got, want in ((x.grad, x32.grad), (head.kernel.grad, k32.grad)):
+        limit = 2e-2 * max(1.0, want.abs().max().item())
+        assert (got.float() - want).abs().max().item() <= limit
+
+
+@pytest.mark.parametrize("remat", ["save_flash", "full"])
+def test_small_model_gradients_match_cpu(cuda, remat):
+    """A small fp32 TransformerLM (head_dim 32): loss and every parameter's
+    gradient on the card (the flash op: forward and backward kernels,
+    under remat) against the same weights on the CPU (the dense reference
+    with native autodiff); 1e-4 of max(1, max|ref|) (summation order)."""
+    from edl_tpu_torch.models.transformer import TransformerLM
+
+    cfg = dict(vocab_size=256, d_model=128, num_heads=4, num_layers=2,
+               d_ff=256, dtype=torch.float32, remat=True, remat_policy=remat)
+    cpu = TransformerLM(device="cpu", **cfg).init_weights(
+        torch.Generator().manual_seed(0))
+    gpu = TransformerLM(device=cuda, **cfg)
+    gpu.load_state_dict(cpu.state_dict())
+    tokens = torch.randint(0, 256, (2, 97), generator=torch.Generator()
+                           .manual_seed(1))
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        x, y = tokens[:, :-1].to(dev), tokens[:, 1:].to(dev)
+        logits = model(x)
+        loss = torch.nn.functional.cross_entropy(
+            logits.reshape(-1, 256), y.reshape(-1))
+        loss.backward()
+        losses.append(loss.item())
+    assert abs(losses[0] - losses[1]) <= 1e-4
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        limit = 1e-4 * max(1.0, pc.grad.abs().max().item())
+        assert (pg.grad.cpu() - pc.grad).abs().max().item() <= limit, name

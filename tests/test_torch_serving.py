@@ -30,6 +30,23 @@ from edl_tpu_torch.rpc import _msgpack, wire
 from edl_tpu_torch.rpc.ndarray import encode_tree, encode_tree_zc
 from edl_tpu_torch.utils.exceptions import EdlOverloadError
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_persistent_compilation_cache():
+    """Compile this module's JAX code afresh: another test file in the same
+    worker may have armed JAX's persistent compilation cache with a key
+    function (``edl_tpu.train.aot.enable_portable_cache_keys``) that this
+    JAX version cannot call."""
+    from jax._src import compilation_cache
+
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", enabled)
+    compilation_cache.reset_cache()
+
+
 PAYLOADS = [
     pytest.param({"i": 1, "m": "ping"}, id="ping"),
     pytest.param({"i": 7, "ok": True, "qd": 0, "ew": 1.25}, id="ok"),

@@ -25,6 +25,23 @@ from edl_tpu.models.transformer import TransformerLM as JaxLM
 from edl_tpu_torch import convert
 from edl_tpu_torch.models.transformer import TransformerLM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_persistent_compilation_cache():
+    """Compile this module's JAX code afresh: another test file in the same
+    worker may have armed JAX's persistent compilation cache with a key
+    function (``edl_tpu.train.aot.enable_portable_cache_keys``) that this
+    JAX version cannot call."""
+    from jax._src import compilation_cache
+
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", enabled)
+    compilation_cache.reset_cache()
+
+
 jtf = importlib.import_module("edl_tpu.models.transformer")
 ttf = importlib.import_module("edl_tpu_torch.models.transformer")
 
@@ -44,8 +61,9 @@ def jax_params():
     return jax.tree.map(np.asarray, params["params"])
 
 
-def _port(dtype, params):
-    model = TransformerLM(dtype=getattr(torch, dtype), device="cpu", **CFG)
+def _port(dtype, params, param_dtype=torch.float32):
+    model = TransformerLM(dtype=getattr(torch, dtype), param_dtype=param_dtype,
+                          device="cpu", **CFG)
     return convert.load_params(model, params)
 
 
@@ -89,7 +107,7 @@ def test_npz_round_trip(jax_params, tmp_path):
 
 
 def test_bf16_storage_keeps_norm_scales_fp32(jax_params):
-    model = _port("bfloat16", jax_params)
+    model = _port("bfloat16", jax_params, param_dtype=torch.bfloat16)
     for name, p in model.named_parameters():
         want = torch.float32 if name.endswith(".scale") else torch.bfloat16
         assert p.dtype == want, name
@@ -107,7 +125,7 @@ def test_rmsnorm_matches_jax(dtype):
     norm = ttf.RMSNorm(64, device="cpu")
     with torch.no_grad():
         norm.scale.copy_(torch.from_numpy(scale))
-    got = norm(torch.from_numpy(x).to(getattr(torch, dtype)))
+        got = norm(torch.from_numpy(x).to(getattr(torch, dtype)))
     np.testing.assert_allclose(
         got.float().numpy(), np.asarray(want.astype(jnp.float32)),
         atol=1e-5 if dtype == "float32" else 2e-2,
