@@ -40,6 +40,7 @@ prints no result. Imports nothing of JAX or of the JAX package.
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -159,6 +160,23 @@ def phase_device(torch) -> dict:
     return info
 
 
+def _ptxas_lines(log: str) -> list:
+    """Each kernel's registers and spills, and any wgmma serialisation
+    ptxas reports (its "Potential Performance Loss" lines), with the
+    mangled names cut to kernel<head_dim>."""
+    out = []
+    for ln in log.splitlines():
+        if not ("registers" in ln or "spill" in ln or "Compiling entry" in ln
+                or "Potential Performance Loss" in ln):
+            continue
+        ln = ln.strip()
+        m = re.search(r"\d(flash_\w+?_kernel)ILi(\d+)", ln)
+        if m:
+            ln = re.sub(r"'_Z[^']*'", "%s<%s>" % m.groups(), ln, count=1)
+        out.append(ln)
+    return out
+
+
 def phase_build() -> dict:
     from edl_tpu_torch.ops import _build
 
@@ -169,8 +187,7 @@ def phase_build() -> dict:
         for name, fut in builds.items():
             _lib, log = fut.result()
             _build.load(name)
-            regs[name] = [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln]
+            regs[name] = _ptxas_lines(log)
     out = {"phase": "build", "seconds": time.monotonic() - t0,
            "sources": list(SOURCES), "ptxas": regs}
     emit(out)
@@ -321,10 +338,25 @@ def _library_bwd(torch, q, k, v, g, causal):
     return fn, fn()
 
 
+def host_us(torch, fn, n: int = 20) -> float:
+    """Mean host time of queueing ``fn`` (µs), with a spin kernel holding
+    the stream so that the launches never wait for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(100 * 1.98e6))  # 100 ms at the boost clock
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    out = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
 def phase_kernels_bwd(torch) -> list:
     from edl_tpu_torch.ops.attention import (
         _block_grads_reference,
         _bwd_delta,
+        flash_backward,
         flash_bwd_dkv,
         flash_bwd_dq,
         flash_forward,
@@ -358,18 +390,29 @@ def phase_kernels_bwd(torch) -> list:
             ms_dkv = time_ms(torch, lambda: flash_bwd_dkv(*args))
             plain_ms = time_ms(torch, lambda: _block_grads_reference(*args),
                                budget_ms=200.0)
+            # the host's side of one backward as the training step calls it
+            # (operand checks, padded lse/delta rows, tensor maps, launches)
+            bwd_host_us = host_us(torch, lambda: flash_backward(*args))
         library, lib_grads = _library_bwd(torch, q, k, v, g, causal)
         with torch.no_grad():
             lib_err = max((a.float() - c.float()).abs().max().item()
                           for a, c in zip(lib_grads, (dq, dk, dv)))
         library_ms = time_ms(torch, library, budget_ms=200.0)
+        bounds = _bwd_bounds(case)
         rec = {
             "phase": "kernel_bwd", "shape": [b, h, h_kv, tq, tk, d],
             "causal": causal, "dtype": dtype, "max_abs_err": errs,
             "tol": tols, "dq_ms": ms_dq, "dkv_ms": ms_dkv,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "library_vs_kernel_max_abs_diff": lib_err,
-            "bounds": _bwd_bounds(case),
+            "bounds": bounds,
+            # the products each kernel needs over its time, and its bound
+            # over its time (1 = as fast as the card allows)
+            "dq_tflops": bounds["dq"]["ops"] / ms_dq / 1e9,
+            "dkv_tflops": bounds["dkv"]["ops"] / ms_dkv / 1e9,
+            "bound_share": {"dq": bounds["dq"]["bound_ms"] / ms_dq,
+                            "dkv": bounds["dkv"]["bound_ms"] / ms_dkv},
+            "bwd_host_us": bwd_host_us,
         }
         emit(rec)
         for name in errs:

@@ -225,8 +225,8 @@ def _lib(name: str):
         )
     else:
         fns = [lib.edl_flash_bwd_dq, lib.edl_flash_bwd_dkv]
-        # dtype, head_dim; q k v dO lse delta out0 out1; B H Hkv Tq Tk;
-        # strides (18, in an array); causal scale vec16 stream
+        # dtype, head_dim; q k v dO lse2 delta out0 out1; B H Hkv Tq Tk;
+        # strides (18, in an array); causal scale t_pad stream
         argtypes = (
             [ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 8
@@ -293,19 +293,59 @@ def flash_forward(q, k, v, causal: bool = False, scale=None):
 flash_forward.launches = 0
 
 
+def _tma_ready(t: torch.Tensor) -> bool:
+    """The backward kernels can read ``t`` as it is: unit stride on the last
+    axis, a 16-byte aligned base and 16-byte multiples as the other strides
+    (TMA's rules; the stride of an axis of extent 1 is never used)."""
+    esize = t.element_size()
+    return (
+        t.stride(-1) == 1
+        and t.data_ptr() % 16 == 0
+        and all(n == 1 or st * esize % 16 == 0
+                for n, st in zip(t.shape[:-1], t.stride()[:-1]))
+    )
+
+
+def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the backward kernels can read it, else a
+    contiguous copy of it (a copy, never the plain version). The model's
+    [B, H, T, D] views of [B, T, H, D] memory go in as they are."""
+    return t if _tma_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+_LOG2E = 1.4426950408889634
+_ROW_PAD = 128  # a multiple of every query tile, as the C interface asks
+
+
+def _bwd_rows(lse, delta):
+    """``(lse2, delta, t_pad)``: [B*H, t_pad] fp32 rows for the backward
+    kernels, ``lse·log2(e)`` and ``delta`` padded with zeros to ``t_pad``,
+    the next multiple of 128 at or above Tq (one tile copies them whole)."""
+    b, h, tq = lse.shape
+    t_pad = -(-tq // _ROW_PAD) * _ROW_PAD
+    rows = torch.empty((2, b * h, t_pad), dtype=torch.float32,
+                       device=lse.device)
+    if t_pad > tq:
+        rows[:, :, tq:].zero_()
+    torch.mul(lse.reshape(b * h, tq).float(), _LOG2E, out=rows[0, :, :tq])
+    rows[1, :, :tq].copy_(delta.reshape(b * h, tq))
+    return rows[0], rows[1], t_pad
+
+
 def _bwd_inputs(q, k, v, g, lse, delta, what):
-    """Check the backward's inputs for a kernel; ``dO`` without unit stride
-    on head_dim becomes a contiguous copy (a copy, not a fallback), and
-    lse/delta contiguous fp32 [B, H, Tq]."""
+    """Check the backward's inputs for the kernels: q, k, v and dO they
+    cannot read as they are become contiguous copies
+    (:func:`_kernel_operand`), and lse/delta [B, H, Tq] become the padded
+    rows of :func:`_bwd_rows`. Returns ``(q, k, v, g, lse2, delta2,
+    t_pad)``."""
+    q, k, v = (_kernel_operand(t) for t in (q, k, v))
     _check_kernel_inputs(q, k, v, what, lib="flash_bwd")
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
         raise ValueError(
             "dO %s %s does not match q %s %s"
             % (tuple(g.shape), g.dtype, tuple(q.shape), q.dtype)
         )
-    if g.stride(3) != 1:
-        g = g.contiguous()
-    res = []
+    g = _kernel_operand(g)
     for name, t in (("lse", lse), ("delta", delta)):
         if tuple(t.shape) != tuple(q.shape[:3]) or t.device != q.device:
             raise ValueError(
@@ -313,11 +353,11 @@ def _bwd_inputs(q, k, v, g, lse, delta, what):
                 % (name, tuple(t.shape), t.device, tuple(q.shape[:3]),
                    q.device)
             )
-        res.append(t.float().contiguous())
-    return g, res[0], res[1]
+    return (q, k, v, g) + _bwd_rows(lse, delta)
 
 
-def _launch_bwd(fn, name, q, k, v, g, lse, delta, outs, causal, scale):
+def _launch_bwd(fn, name, ins, outs, causal, scale):
+    q, k, v, g, lse2, delta2, t_pad = ins
     b, h, tq, d = q.shape
     h_kv, tk = k.shape[1], k.shape[2]
     strides = []
@@ -330,12 +370,38 @@ def _launch_bwd(fn, name, q, k, v, g, lse, delta, outs, causal, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), g.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            v.data_ptr(), g.data_ptr(), lse2.data_ptr(), delta2.data_ptr(),
             ptrs[0], ptrs[1], b, h, h_kv, tq, tk, ctypes.addressof(arr),
-            int(bool(causal)), float(scale), int(_vec16(q, k, v, g)), stream,
+            int(bool(causal)), float(scale), t_pad, stream,
         )
     if err != 0:
         raise RuntimeError("%s launch failed: CUDA error %d" % (name, err))
+
+
+def _run_dq(ins, causal, scale):
+    q = ins[0]
+    b, h, tq, d = q.shape
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if tq == 0 or b * h == 0:
+        return dq
+    _launch_bwd(_lib("flash_bwd").edl_flash_bwd_dq, "flash_bwd_dq", ins,
+                (dq,), causal, scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def _run_dkv(ins, causal, scale):
+    q, k = ins[0], ins[1]
+    b, h_kv, tk, d = k.shape
+    shape = (b, tk, h_kv, d)
+    dk = torch.empty(shape, dtype=k.dtype, device=k.device).transpose(1, 2)
+    dv = torch.empty(shape, dtype=k.dtype, device=k.device).transpose(1, 2)
+    if q.shape[2] == 0:
+        return dk.zero_(), dv.zero_()
+    _launch_bwd(_lib("flash_bwd").edl_flash_bwd_dkv, "flash_bwd_dkv", ins,
+                (dk, dv), causal, scale)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool = False, scale=None):
@@ -350,15 +416,8 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal: bool = False, scale=None):
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _block_grads_reference(q, k, v, g, lse, delta, causal, scale)[0]
-    g, lse, delta = _bwd_inputs(q, k, v, g, lse, delta, "flash_bwd_dq")
-    b, h, tq, d = q.shape
-    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    if tq == 0 or b * h == 0:
-        return dq
-    _launch_bwd(_lib("flash_bwd").edl_flash_bwd_dq, "flash_bwd_dq",
-                q, k, v, g, lse, delta, (dq,), causal, scale)
-    flash_bwd_dq.launches += 1
-    return dq
+    ins = _bwd_inputs(q, k, v, g, lse, delta, "flash_bwd_dq")
+    return _run_dq(ins, causal, scale)
 
 
 flash_bwd_dq.launches = 0
@@ -376,17 +435,8 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool = False, scale=None):
         scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return _block_grads_reference(q, k, v, g, lse, delta, causal, scale)[1:]
-    g, lse, delta = _bwd_inputs(q, k, v, g, lse, delta, "flash_bwd_dkv")
-    b, h_kv, tk, d = k.shape
-    shape = (b, tk, h_kv, d)
-    dk = torch.empty(shape, dtype=k.dtype, device=k.device).transpose(1, 2)
-    dv = torch.empty(shape, dtype=v.dtype, device=v.device).transpose(1, 2)
-    if q.shape[2] == 0:
-        return dk.zero_(), dv.zero_()
-    _launch_bwd(_lib("flash_bwd").edl_flash_bwd_dkv, "flash_bwd_dkv",
-                q, k, v, g, lse, delta, (dk, dv), causal, scale)
-    flash_bwd_dkv.launches += 1
-    return dk, dv
+    ins = _bwd_inputs(q, k, v, g, lse, delta, "flash_bwd_dkv")
+    return _run_dkv(ins, causal, scale)
 
 
 flash_bwd_dkv.launches = 0
@@ -394,12 +444,13 @@ flash_bwd_dkv.launches = 0
 
 def flash_backward(q, k, v, g, lse, delta, causal: bool, scale: float):
     """``(dq, dk, dv)``: the dq kernel then the dk/dv kernel on CUDA
-    tensors (their plain version, once, on CPU tensors). ``lse``/``delta``
-    are [B, H, Tq] fp32."""
+    tensors, sharing one preparation of their inputs (their plain version,
+    once, on CPU tensors). ``lse``/``delta`` are [B, H, Tq] fp32."""
     if q.device.type == "cpu":
         return _block_grads_reference(q, k, v, g, lse, delta, causal, scale)
-    dq = flash_bwd_dq(q, k, v, g, lse, delta, causal, scale)
-    dk, dv = flash_bwd_dkv(q, k, v, g, lse, delta, causal, scale)
+    ins = _bwd_inputs(q, k, v, g, lse, delta, "flash_backward")
+    dq = _run_dq(ins, causal, scale)
+    dk, dv = _run_dkv(ins, causal, scale)
     return dq, dk, dv
 
 

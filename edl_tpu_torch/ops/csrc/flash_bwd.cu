@@ -14,8 +14,13 @@
 //
 // Contract (the plain version `_block_grads_reference` is the spec):
 //   - q, dO [B, H, Tq, D], k/v [B, Hkv, Tk, D] with any element strides on
-//     the first three axes and unit stride on D; lse, delta [B*H, Tq] fp32;
-//     dq [B, H, Tq, D], dk/dv [B, Hkv, Tk, D] written with the strides given.
+//     the first three axes and unit stride on D; for bf16 (TMA) the bases
+//     are 16-byte aligned and the strides 16-byte multiples (the wrapper
+//     copies an operand that is not). dq [B, H, Tq, D], dk/dv
+//     [B, Hkv, Tk, D] are written with the strides given.
+//   - `lse` and `delta` are [B*H, t_pad] fp32 rows, t_pad a multiple of 128
+//     and at least Tq, zero past Tq; lse comes multiplied by log2(e), so
+//     p = exp2(s c - lse) with c = scale log2(e).
 //   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated).
 //   - causal mask end-aligned (row i sees keys j <= i + Tk - Tq). A masked
 //     entry has p = 0 and ds = 0 (the reference's masked_fill passes no
@@ -29,62 +34,87 @@
 //     buffer (equal to the full-width result summed over each group).
 //   - no atomics anywhere: results repeat bit for bit from run to run.
 //
-// Design (simple, right first). 128 threads (4 warps), 64-row tiles:
-//   - K2 `flash_bwd_dq`: one CTA per (B*H row, 64-query tile). q and dO
-//     stay in registers as mma A fragments; K/V tiles of 64 keys are staged
-//     in shared memory, in two 32-key halves: S = q k^T and dP = dO v^T land
-//     in the accumulator layout, ds is rounded to bf16 and repacked in
-//     registers as the A operand of dq += ds k (k's B operand from
-//     ldmatrix.trans). The walk stops at the causal bound of the tile's last
-//     row; tiles are issued longest first.
-//   - K3 `flash_bwd_dkv`: one CTA per (batch, kv head, 64-key tile). K and V
-//     stay resident in shared memory; each warp owns 16 keys and keeps its dk
-//     and dv accumulators in registers. For each query head of the group, q
-//     and dO tiles (with lse, delta) stream through shared memory from the
-//     causal lower bound (plus the tiles holding rows that see no key); in
-//     two 32-query halves S^T = k q^T and dP^T = v dO^T are formed, p^T and
-//     ds^T repacked to bf16 as A operands of dv += p^T dO and dk += ds^T q.
-//   - fp32 (the small config): the same walks with fp32 FMAs on the CUDA
-//     cores (tf32 mma would round q and k); each thread owns a 4-row x
-//     8-column block of the score tile.
-//
 // Bound at the flagship shape (per launch, causal, B=8, H=16, T=2048, D=64,
 // bf16): K2 does 3 products of 2*D flops per visible pair (S, dP, dq):
 // 6*D*B*H*T(T+1)/2 = 103 GFLOP, about 0.10 ms at 989 TFLOP/s; K3 does 4
-// (S, dP, dv, dk): 137 GFLOP, 0.14 ms. A fused backward needs 10*D per pair
-// (S and dP once): 172 GFLOP. Each reads q, k, v, dO (bf16) and lse, delta
-// (fp32) and writes one or two [.., T, D] bf16 tensors, about 135 MB
-// (40 us): compute-bound.
+// (S, dP, dv, dk): 137 GFLOP, 0.14 ms. Each reads q, k, v, dO (bf16) and
+// lse, delta (fp32) and writes one or two [.., T, D] bf16 tensors, about
+// 135 MB (40 us): compute-bound, so the design is about feeding the tensor
+// cores.
 //
-// What this design leaves on the table: mma.sync instead of wgmma (a part
-// of the tensor-core rate); synchronous tile loads with no cp.async / TMA
-// ring, so only other resident CTAs hide them; S and dP computed twice, once
-// in each kernel (a fused kernel needs atomics or a second pass for dq); the
-// exp recomputed in both kernels.
+// Design of the bf16 bodies: one warpgroup per CTA owning 64 rows (K2:
+// query rows, K3: keys), two CTAs per SM.
+//   - Tensor cores through wgmma.mma_async (m64nNk16, bf16 in, fp32
+//     accumulate). Q, dO, K and V tiles sit in shared memory in the swizzle
+//     TMA writes and wgmma reads through descriptors (hopper.cuh); one tile
+//     serves as a K-major operand (S = Q K^T) and as an MN-major one
+//     (dQ += dS K), so nothing is transposed or reloaded. P, dS and their
+//     transposes never leave registers: the accumulator rounded to bf16 is
+//     the register A operand of the next product.
+//   - A ring of STAGES tiles filled by TMA (cp.async.bulk.tensor), issued
+//     by thread 0 as soon as a slot is free; full/empty mbarriers pace it.
+//     The tensor maps are encoded on the host for each call
+//     (cuTensorMapEncodeTiled through cudaGetDriverEntryPoint, so no
+//     -lcuda) and passed as __grid_constant__ parameters. K2's ring holds K
+//     and V per key tile; K3's holds Q, dO and, by 1-D bulk copies, lse and
+//     delta per query tile.
+//   - A software pipeline (`pipeline` below): a tile's accumulation runs
+//     on while the warpgroup waits for the next tile's S and dP, issued
+//     behind it; the two CTAs of an SM fill each other's exp time.
+//   - The resident operand is loaded once: K2's Q and dO rows (their lse
+//     and delta in registers), K3's K and V rows. K3's dK and dV
+//     accumulators stay in registers across the whole walk, GQA group
+//     included.
+//   - Tiles wholly visible run a body with no per-element test; only tiles
+//     that cross the causal diagonal, the ragged Tq / Tk edge, or hold rows
+//     that see no key run the masked body.
+//   - Longest walks first: K2 issues query tiles last to first under the
+//     causal mask, K3 key tiles first to last. Each CTA writes its rows of
+//     dq, or of dk/dv, once, from registers into the strided outputs.
+// What it leaves on the table: each warpgroup runs a serial chain per tile
+// (S and dP, wait, exp, accumulation), and the accumulation products cost
+// several times their tensor-core time in it (dropping them, for timing
+// only, more than halves either kernel); S and dP are computed in both
+// kernels (a fused backward needs atomics or a second pass for dq).
+//
+// fp32 (the small config): the same walks with fp32 FMAs on the CUDA cores
+// (tf32 would round q and k); each thread owns a 4-row x 8-column block of
+// the score tile.
 
 #include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using hopper::Tile;
+using hopper::Wgmma;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const void* dout;
-  const float* lse;
-  const float* delta;
-  void* out0;  // dq (K2) or dk (K3)
-  void* out1;  // dv (K3)
-  int H, Hkv, group, Tq, Tk, causal, q_offset, vec16;
-  float scale;
+  const float* lse;    // [B*H, t_pad]: lse * log2(e)
+  const float* delta;  // [B*H, t_pad]
+  void* out0;          // dq (K2) or dk (K3)
+  void* out1;          // dv (K3)
+  int H, Hkv, group, Tq, Tk, causal, q_offset, t_pad;
+  float scale, c;  // c = scale * log2(e)
   Strides sq, sk, sv, sdo, s0, s1;
 };
 
-// p and ds of (query row qi, key kk) from the raw score s and dp.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p and ds of (query row qi, key kk) from the raw score s and dp, with the
+// masks; lse2 is the row's lse * log2(e).
 __device__ __forceinline__ void grad_entry(const Params& p, float s, float dp,
-                                           int qi, int kk, float lse,
+                                           int qi, int kk, float lse2,
                                            float delta, float& pe, float& ds) {
   pe = 0.f;
   ds = 0.f;
@@ -97,291 +127,439 @@ __device__ __forceinline__ void grad_entry(const Params& p, float s, float dp,
     }
     if (kk > last) return;
   }
-  pe = __expf(s * p.scale - lse);
+  pe = exp2_approx(fmaf(s, p.c, -lse2));
   ds = pe * (dp - delta);
 }
 
-// KV tiles query tile q0 walks for dq: up to the last visible key of its
-// last row (none if that row sees no key).
-__device__ __forceinline__ int dq_kv_tiles(const Params& p, int q0) {
-  const int nk = (p.Tk + BK - 1) / BK;
+// Key tiles (of bk) query tile [q0, q0 + bq) walks for dq: up to the last
+// visible key of its last row (none if that row sees no key).
+__device__ __forceinline__ int dq_kv_tiles(const Params& p, int q0, int bq,
+                                           int bk) {
+  const int nk = (p.Tk + bk - 1) / bk;
   if (!p.causal) return nk;
-  const int last = min(q0 + BQ, p.Tq) - 1 + p.q_offset;
-  return last < 0 ? 0 : min(nk, last / BK + 1);
+  const int last = min(q0 + bq, p.Tq) - 1 + p.q_offset;
+  return last < 0 ? 0 : min(nk, last / bk + 1);
 }
 
-// Query tiles key tile k0 skips for dk/dv: [nokey, lower) see none of its
-// keys. Tiles below `nokey` hold rows that see no key at all (they add to
-// every key's dv); tiles from `lower` on hold rows that see key k0.
-__device__ __forceinline__ void dkv_q_range(const Params& p, int k0,
+// Query tiles (of bq) key tile k0 skips for dk/dv: [nokey, lower) see none
+// of its keys. Tiles below `nokey` hold rows that see no key at all (they
+// add to every key's dv); tiles from `lower` on hold rows that see key k0.
+__device__ __forceinline__ void dkv_q_range(const Params& p, int k0, int bq,
                                             int& nokey, int& lower) {
   nokey = 0;
   lower = 0;
   if (!p.causal) return;
-  if (p.q_offset < 0) nokey = (-p.q_offset + BQ - 1) / BQ;
-  lower = max(0, (k0 - p.q_offset) / BQ);
+  if (p.q_offset < 0) nokey = (-p.q_offset + bq - 1) / bq;
+  lower = max(0, (k0 - p.q_offset) / bq);
 }
 
 // ---------------------------------------------------------------- bf16 ----
 
+// One warpgroup per CTA: 64 rows (K2: query rows, K3: keys). There is no
+// producer warp: ptxas sizes every thread's registers to the launch bound,
+// and on each SM sub-partition (a quarter of the register file) a fifth
+// warp beside a warpgroup costs as much as a whole producer warpgroup does,
+// capping the threads at 168 registers; setmaxnreg did not lift that cap
+// (ptxas allocated to the launch bound either way). So thread 0 issues the
+// loads, and the warpgroup keeps up to 255 registers a thread with two
+// CTAs on an SM.
+constexpr int THREADS = 128;
+constexpr int CTAS = 2;    // CTAs per SM the registers are sized for
+constexpr int STAGES = 3;  // tile t computes while tiles t + 1, t + 2 load
+// Ring tile rows (K2: keys, K3: queries) at every head_dim: 32 and 128
+// measured slower at D 64 and D 128 on the H100, and N 64 keeps the S and
+// dP accumulators at 32 registers each.
+constexpr int BN = 64;
+
+struct BwdArgs {
+  CUtensorMap tq, tk, tv, tdo;  // tile maps (box rows per kernel)
+  Params p;
+};
+
+constexpr uint32_t round_1k(uint32_t n) { return (n + 1023) / 1024 * 1024; }
+
 template <int D>
-constexpr size_t smem_bytes_bf16() {
-  return sizeof(__nv_bfloat16) * 4 * 64 * (D + LDS_PAD) +
-         sizeof(float) * 2 * BQ;
+struct DqSmem {
+  static constexpr uint32_t RES = 2 * Tile<D>::bytes(64);    // Q, dO
+  static constexpr uint32_t STAGE = 2 * Tile<D>::bytes(BN);  // K, V
+  static constexpr size_t BYTES = 1024 + RES + STAGES * STAGE + 64;
+};
+
+template <int D>
+struct DkvSmem {
+  static constexpr uint32_t RES = 2 * Tile<D>::bytes(64);    // K, V
+  static constexpr uint32_t TILES = 2 * Tile<D>::bytes(BN);  // Q, dO
+  static constexpr uint32_t STAGE = round_1k(TILES + 2 * 4 * BN);  // + rows
+  static constexpr size_t BYTES = 1024 + RES + STAGES * STAGE + 64;
+};
+
+// The dynamic shared memory rounded up to the 1024-byte boundary a
+// swizzled tile needs (each launch asks for 1024 bytes of slack).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t addr = hopper::smem_u32(smem_raw);
+  return smem_raw + ((1024 - (addr & 1023)) & 1023);
+}
+
+// Barriers after the tiles: the resident tiles', then full[STAGES] (the
+// loads, one arrival with their bytes) and empty[STAGES] (every thread).
+__device__ __forceinline__ void init_barriers(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bars[0], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&bars[1 + s], 1);
+      hopper::mbar_init(&bars[1 + STAGES + s], THREADS);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// C = A B^T over head_dim for two products at once (S and dP), A the
+// resident 64-row tile and B a ring tile, both K-major: one commit group.
+template <int D>
+__device__ __forceinline__ void issue_pair(float (&c0)[BN / 2],
+                                           float (&c1)[BN / 2], uint32_t a0,
+                                           uint32_t b0, uint32_t a1,
+                                           uint32_t b1) {
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    Wgmma<BN>::ss(c0, hopper::desc_k<D>(a0, 64, kk),
+                  hopper::desc_k<D>(b0, BN, kk), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    Wgmma<BN>::ss(c1, hopper::desc_k<D>(a1, 64, kk),
+                  hopper::desc_k<D>(b1, BN, kk), kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// The software pipeline both kernels run over their n ring tiles.
+// `issue(t, s, dp)` issues tile t's S and dP products, `body(t, s, dp)`
+// takes p and ds of tile t (exp and masks, on the CUDA cores) and issues
+// its accumulation (K2: dq += ds k; K3: dv += p^T dO, dk += ds^T q), and
+// `release(t)` frees tile t's slot (which loads tile t + STAGES into it).
+// A tile's accumulation is not waited for until the next tile's S and dP
+// are issued behind it, so the tensor cores run the two back to back.
+// Finer schedules measured slower on the H100: S and dP of tile t + 1 in a
+// second register set under the exp of tile t (ptxas serialised the wgmmas
+// of K2; K3 ran out of registers at D 64 and lost time at 32-row tiles);
+// S and dP, or dv and dk, as separate commit groups so that the exp or ds
+// overlaps the other product (each extra wait cost more than it hid); two
+// warpgroups per CTA taking turns through named barriers.
+template <int N, typename Issue, typename Release, typename Body>
+__device__ __forceinline__ void pipeline(int n, Issue&& issue,
+                                         Release&& release, Body&& body) {
+  float s[N], dp[N];
+  for (int t = 0; t < n; ++t) {
+    issue(t, s, dp);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    if (t > 0) release(t - 1);
+    body(t, s, dp);
+  }
+  hopper::wgmma_wait<0>();
+  release(n - 1);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_bf16_kernel(Params p) {
-  constexpr int LDS = D + LDS_PAD;
-  constexpr int KC = D / 16;  // k-steps over head_dim
-  constexpr int DT = D / 8;   // 8-wide column tiles of dq
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sDO = sQ + 64 * LDS;
-  __nv_bfloat16* sK = sDO + 64 * LDS;
-  __nv_bfloat16* sV = sK + 64 * LDS;
+__global__ void __launch_bounds__(THREADS, CTAS)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ BwdArgs args) {
+  using S = DqSmem<D>;
+  const Params& p = args.p;
+  unsigned char* sQ = smem_base();
+  unsigned char* sDO = sQ + Tile<D>::bytes(64);
+  unsigned char* ring = sQ + S::RES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
   // under the causal mask the last query tiles walk the most keys
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BQ;
+  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * 64;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / p.group;
+  const int n_tiles = dq_kv_tiles(p, q0, 64, BN);
+  init_barriers(bars);
+
+  // thread 0 loads: Q and dO once, then the K, V tile of each step
+  const bool leader = threadIdx.x == 0;
+  auto load_kv = [&](int kt) HOPPER_INLINE {
+    const int st = kt % STAGES;
+    hopper::mbar_wait(&empty[st], ((kt / STAGES) & 1) ^ 1);
+    unsigned char* sK = ring + st * S::STAGE;
+    hopper::mbar_expect_tx(&full[st], S::STAGE);
+    hopper::tma_tile<D>(sK, &args.tk, &full[st], BN, kt * BN, hk, b);
+    hopper::tma_tile<D>(sK + Tile<D>::bytes(BN), &args.tv, &full[st], BN,
+                        kt * BN, hk, b);
+  };
+  if (leader && n_tiles > 0) {
+    hopper::mbar_expect_tx(bars, S::RES);
+    hopper::tma_tile<D>(sQ, &args.tq, bars, 64, q0, h, b);
+    hopper::tma_tile<D>(sDO, &args.tdo, bars, 64, q0, h, b);
+    for (int kt = 0; kt < min(STAGES, n_tiles); ++kt) load_kv(kt);
+  }
+  __syncwarp();
 
   using bf = __nv_bfloat16;
-  const bf* q = static_cast<const bf*>(p.q) + b * p.sq.b + h * p.sq.h;
-  const bf* dout = static_cast<const bf*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
-  const bf* k = static_cast<const bf*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const bf* v = static_cast<const bf*>(p.v) + b * p.sv.b + hk * p.sv.h;
+  const int warp = threadIdx.x / 32;
+  const int tg = threadIdx.x % 4;
+  const int rows[2] = {q0 + 16 * warp + threadIdx.x % 32 / 4,
+                       q0 + 16 * warp + threadIdx.x % 32 / 4 + 8};
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long at = static_cast<long long>(bh) * p.t_pad + rows[r];
+    lse2[r] = p.lse[at];
+    dl[r] = p.delta[at];
+  }
+  // no zero fill: the first tile overwrites acc (a fill made ptxas
+  // serialise the wgmmas); a CTA that walks no tile writes zeros
+  float acc[D / 2];
+  const uint32_t aQ = hopper::smem_u32(sQ), aDO = hopper::smem_u32(sDO);
+  auto ring_k = [&](int kt) HOPPER_INLINE {
+    return hopper::smem_u32(ring + kt % STAGES * S::STAGE);
+  };
+
+  if (n_tiles > 0) {
+    hopper::mbar_wait(bars, 0);
+    // S = Q K^T and dP = dO V^T of key tile kt
+    auto issue = [&](int kt, float (&s)[BN / 2],
+                       float (&dp)[BN / 2]) HOPPER_INLINE {
+      hopper::mbar_wait(&full[kt % STAGES], (kt / STAGES) & 1);
+      const uint32_t aK = ring_k(kt);
+      issue_pair<D>(s, dp, aQ, aK, aDO, aK + Tile<D>::bytes(BN));
+    };
+    uint32_t da[BN / 16][4];  // ds as the A operand of dq += ds k
+    // called once tile kt's products are done: their register operands
+    // may be reused from here on
+    auto release = [&](int kt) HOPPER_INLINE {
+      hopper::fence_regs(da);
+      hopper::mbar_arrive(&empty[kt % STAGES]);
+      __syncwarp();
+      if (leader && kt + STAGES < n_tiles) load_kv(kt + STAGES);
+      __syncwarp();
+    };
+    auto body = [&](int kt, float (&s)[BN / 2],
+                      float (&dp)[BN / 2]) HOPPER_INLINE {
+      const int k0 = kt * BN;
+      // register i: row rows[(i >> 1) & 1], key k0 + 8 (i >> 2) + 2 tg + (i & 1)
+      if (k0 + BN <= p.Tk && (!p.causal || q0 + p.q_offset >= k0 + BN - 1)) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          dp[i] = exp2_approx(fmaf(s[i], p.c, -lse2[r])) * (dp[i] - dl[r]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int r = (i >> 1) & 1;
+          float pe;
+          grad_entry(p, s[i], dp[i], rows[r],
+                     k0 + 8 * (i >> 2) + 2 * tg + (i & 1), lse2[r], dl[r], pe,
+                     dp[i]);
+        }
+      }
+      // dq += ds k: ds (bf16) from registers, k MN-major from the ring
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) hopper::pack_a(da[kk], dp, kk);
+      hopper::wgmma_fence();
+      const uint32_t aK = ring_k(kt);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        Wgmma<D>::rs_t(acc, da[kk], hopper::desc_mn<D>(aK, BN, kk),
+                       kt > 0 || kk > 0);
+      }
+      hopper::wgmma_commit();
+    };
+    pipeline<BN / 2>(n_tiles, issue, release, body);
+    hopper::fence_regs(acc);
+  }
+
   bf* dq = static_cast<bf*>(p.out0) + b * p.s0.b + h * p.s0.h;
-
-  load_tile_bf16<D>(sQ, q, p.sq.t, q0, p.Tq, p.vec16);
-  load_tile_bf16<D>(sDO, dout, p.sdo.t, q0, p.Tq, p.vec16);
-  __syncthreads();
-
-  const int wr = warp * 16;
-  uint32_t qf[KC][4], df[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    load_a_frag<LDS>(qf[kc], sQ, wr, kc, g, tg);
-    load_a_frag<LDS>(df[kc], sDO, wr, kc, g, tg);
-  }
-  const int qi[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float lse[2], delta[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const long long row = static_cast<long long>(bh) * p.Tq + qi[r];
-    lse[r] = qi[r] < p.Tq ? p.lse[row] : 0.f;
-    delta[r] = qi[r] < p.Tq ? p.delta[row] : 0.f;
-  }
-  float acc[DT][4];
+    if (rows[r] >= p.Tq) continue;
+    bf* row = dq + rows[r] * p.s0.t + 2 * tg;
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  }
-
-  const int n_tiles = dq_kv_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(sK, k, p.sk.t, k0, p.Tk, p.vec16);
-    load_tile_bf16<D>(sV, v, p.sv.t, k0, p.Tk, p.vec16);
-    __syncthreads();
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int kb = half * 32;  // first key of this half in the tile
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-        const bf* kr = sK + (kb + nt * 8 + g) * LDS + 2 * tg;
-        const bf* vr = sV + (kb + nt * 8 + g) * LDS + 2 * tg;
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          mma_bf16(s[nt], qf[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
-          mma_bf16(dp[nt], df[kc], ld32(vr + kc * 16), ld32(vr + kc * 16 + 8));
-        }
-      }
-      // element e of tile nt: row qi[e >> 1], key k0 + kb + 8 nt + 2 tg + (e & 1)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float pe, ds;
-          grad_entry(p, s[nt][e], dp[nt][e], qi[e >> 1],
-                     k0 + kb + nt * 8 + 2 * tg + (e & 1), lse[e >> 1],
-                     delta[e >> 1], pe, ds);
-          s[nt][e] = ds;
-        }
-      }
-      // dq += ds k: ds (rounded to bf16) is laid out as A fragments
-#pragma unroll
-      for (int kc = 0; kc < 2; ++kc) {
-        uint32_t da[4];
-        pack_a_frag(da, s, kc);
-        const bf* kb_row = trans_row<LDS>(sK, kb + kc * 16, lane);
-#pragma unroll
-        for (int dd = 0; dd < DT / 2; ++dd) {
-          uint32_t kf[4];
-          ldmatrix_x4_trans(kf, kb_row + dd * 16);
-          mma_bf16(acc[2 * dd], da, kf[0], kf[1]);
-          mma_bf16(acc[2 * dd + 1], da, kf[2], kf[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= p.Tq) continue;
-    bf* row = dq + qi[r] * p.s0.t + 2 * tg;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * r] * p.scale, acc[j][2 * r + 1] * p.scale);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          n_tiles > 0 ? __floats2bfloat162_rn(acc[4 * j + 2 * r] * p.scale,
+                                              acc[4 * j + 2 * r + 1] * p.scale)
+                      : __floats2bfloat162_rn(0.f, 0.f);
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_bf16_kernel(Params p) {
-  constexpr int LDS = D + LDS_PAD;
-  constexpr int KC = D / 16;
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sV = sK + 64 * LDS;
-  __nv_bfloat16* sQ = sV + 64 * LDS;
-  __nv_bfloat16* sDO = sQ + 64 * LDS;
-  float* sLse = reinterpret_cast<float*>(sDO + 64 * LDS);
-  float* sDelta = sLse + BQ;
+__global__ void __launch_bounds__(THREADS, CTAS)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ BwdArgs args) {
+  using S = DkvSmem<D>;
+  const Params& p = args.p;
+  unsigned char* sK = smem_base();
+  unsigned char* sV = sK + Tile<D>::bytes(64);
+  unsigned char* ring = sK + S::RES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int k0 = blockIdx.x * BK;  // causal: the first key tiles walk most
+  const int k0 = blockIdx.x * 64;  // causal: the first key tiles walk most
   const int b = blockIdx.y / p.Hkv;
   const int hk = blockIdx.y % p.Hkv;
+  const int nq = (p.Tq + BN - 1) / BN;
+  int nokey, lower;
+  dkv_q_range(p, k0, BN, nokey, lower);
+  lower = max(lower, nokey);
+  // the walk, for each query head of the group: tiles [0, nokey), then
+  // [lower, nq); step `it` is tile tile_of(it) of head it / per_head
+  const int per_head = nokey + nq - lower;
+  const int n_steps = p.group * per_head;
+  auto tile_of = [&](int it) HOPPER_INLINE {
+    const int n = it % per_head;
+    return n < nokey ? n : lower + n - nokey;
+  };
+  init_barriers(bars);
+
+  // thread 0 loads: K and V once, then each step's Q, dO, lse and delta
+  const bool leader = threadIdx.x == 0;
+  auto load_q = [&](int it) HOPPER_INLINE {
+    const int h = hk * p.group + it / per_head;
+    const int q0 = tile_of(it) * BN;
+    const long long row = (static_cast<long long>(b) * p.H + h) * p.t_pad + q0;
+    const int st = it % STAGES;
+    hopper::mbar_wait(&empty[st], ((it / STAGES) & 1) ^ 1);
+    unsigned char* sQ = ring + st * S::STAGE;
+    float* sL = reinterpret_cast<float*>(sQ + S::TILES);
+    hopper::mbar_expect_tx(&full[st], S::TILES + 2 * 4 * BN);
+    hopper::tma_tile<D>(sQ, &args.tq, &full[st], BN, q0, h, b);
+    hopper::tma_tile<D>(sQ + Tile<D>::bytes(BN), &args.tdo, &full[st], BN,
+                        q0, h, b);
+    hopper::bulk_load(sL, p.lse + row, 4 * BN, &full[st]);
+    hopper::bulk_load(sL + BN, p.delta + row, 4 * BN, &full[st]);
+  };
+  if (leader) {
+    hopper::mbar_expect_tx(bars, S::RES);
+    hopper::tma_tile<D>(sK, &args.tk, bars, 64, k0, hk, b);
+    hopper::tma_tile<D>(sV, &args.tv, bars, 64, k0, hk, b);
+    for (int it = 0; it < min(STAGES, n_steps); ++it) load_q(it);
+  }
+  __syncwarp();
 
   using bf = __nv_bfloat16;
-  const bf* k = static_cast<const bf*>(p.k) + b * p.sk.b + hk * p.sk.h;
-  const bf* v = static_cast<const bf*>(p.v) + b * p.sv.b + hk * p.sv.h;
-  bf* dk_out = static_cast<bf*>(p.out0) + b * p.s0.b + hk * p.s0.h;
-  bf* dv_out = static_cast<bf*>(p.out1) + b * p.s1.b + hk * p.s1.h;
+  const int warp = threadIdx.x / 32;
+  const int tg = threadIdx.x % 4;
+  const int keys[2] = {k0 + 16 * warp + threadIdx.x % 32 / 4,
+                       k0 + 16 * warp + threadIdx.x % 32 / 4 + 8};
+  // no zero fill: the first step overwrites them (a fill here made ptxas
+  // serialise every wgmma of the kernel)
+  float dk[D / 2], dv[D / 2];
+  const uint32_t aK = hopper::smem_u32(sK), aV = hopper::smem_u32(sV);
+  auto ring_q = [&](int it) HOPPER_INLINE {
+    return hopper::smem_u32(ring + it % STAGES * S::STAGE);
+  };
 
-  load_tile_bf16<D>(sK, k, p.sk.t, k0, p.Tk, p.vec16);
-  load_tile_bf16<D>(sV, v, p.sv.t, k0, p.Tk, p.vec16);
-
-  const int wr = warp * 16;  // this warp's 16 keys
-  const int kr[2] = {k0 + wr + g, k0 + wr + g + 8};
-  float dk[DT][4], dv[DT][4];
+  hopper::mbar_wait(bars, 0);
+  // S^T = K Q^T and dP^T = V dO^T of step it (rows: keys, columns: queries)
+  auto issue = [&](int it, float (&s)[BN / 2],
+                     float (&dp)[BN / 2]) HOPPER_INLINE {
+    hopper::mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+    const uint32_t aQ = ring_q(it);
+    issue_pair<D>(s, dp, aK, aQ, aV, aQ + Tile<D>::bytes(BN));
+  };
+  // p^T and ds^T as the A operands of dv += p^T dO and dk += ds^T q
+  uint32_t pa[BN / 16][4], da[BN / 16][4];
+  // called once step it's products are done: their register operands may
+  // be reused from here on
+  auto release = [&](int it) HOPPER_INLINE {
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    hopper::mbar_arrive(&empty[it % STAGES]);
+    __syncwarp();
+    if (leader && it + STAGES < n_steps) load_q(it + STAGES);
+    __syncwarp();
+  };
+  auto body = [&](int it, float (&s)[BN / 2],
+                    float (&dp)[BN / 2]) HOPPER_INLINE {
+    const int q0 = tile_of(it) * BN;
+    const uint32_t aQ = ring_q(it);
+    const float* sL = reinterpret_cast<const float*>(
+        ring + it % STAGES * S::STAGE + S::TILES);
+    const float* sD = sL + BN;
+    // register 4 c + e: key keys[(e >> 1) & 1], query q0 + 8 c + 2 tg +
+    // (e & 1). p^T and ds^T go straight into the A operands (bf16) of
+    // dv += p^T dO and dk += ds^T q: registers 4 c .. 4 c + 3 are
+    // a[2 (c & 1)], a[2 (c & 1) + 1] of k-step c / 2 (hopper::pack_a).
+    if (q0 + BN <= p.Tq && k0 + 64 <= p.Tk &&
+        (!p.causal || q0 + p.q_offset >= k0 + 63)) {
 #pragma unroll
-  for (int j = 0; j < DT; ++j) {
+      for (int c = 0; c < BN / 8; ++c) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * c + 2 * tg);
+        const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * c + 2 * tg);
+        float pe[4], ds[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-  }
-
-  const int nq = (p.Tq + BQ - 1) / BQ;
-  int nokey, lower;
-  dkv_q_range(p, k0, nokey, lower);
-  for (int j = 0; j < p.group; ++j) {
-    const int h = hk * p.group + j;
-    const long long bh = static_cast<long long>(b) * p.H + h;
-    const bf* q = static_cast<const bf*>(p.q) + b * p.sq.b + h * p.sq.h;
-    const bf* dout =
-        static_cast<const bf*>(p.dout) + b * p.sdo.b + h * p.sdo.h;
-    for (int t = 0; t < nq; ++t) {
-      if (t >= nokey && t < lower) t = lower;
-      if (t >= nq) break;
-      const int q0 = t * BQ;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile_bf16<D>(sQ, q, p.sq.t, q0, p.Tq, p.vec16);
-      load_tile_bf16<D>(sDO, dout, p.sdo.t, q0, p.Tq, p.vec16);
-      if (threadIdx.x < BQ) {
-        const int qi = q0 + threadIdx.x;
-        sLse[threadIdx.x] = qi < p.Tq ? p.lse[bh * p.Tq + qi] : 0.f;
-        sDelta[threadIdx.x] = qi < p.Tq ? p.delta[bh * p.Tq + qi] : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          pe[e] = exp2_approx(fmaf(s[4 * c + e], p.c, -((e & 1) ? l2.y : l2.x)));
+          ds[e] = pe[e] * (dp[4 * c + e] - ((e & 1) ? d2.y : d2.x));
+        }
+        pa[c / 2][2 * (c & 1)] = hopper::pack_bf16(pe[0], pe[1]);
+        pa[c / 2][2 * (c & 1) + 1] = hopper::pack_bf16(pe[2], pe[3]);
+        da[c / 2][2 * (c & 1)] = hopper::pack_bf16(ds[0], ds[1]);
+        da[c / 2][2 * (c & 1) + 1] = hopper::pack_bf16(ds[2], ds[3]);
       }
-      __syncthreads();
-
+    } else {
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int qb = half * 32;  // first query of this half in the tile
-        float s[4][4], dp[4][4];
+      for (int c = 0; c < BN / 8; ++c) {
+        const float2 l2 = *reinterpret_cast<const float2*>(sL + 8 * c + 2 * tg);
+        const float2 d2 = *reinterpret_cast<const float2*>(sD + 8 * c + 2 * tg);
+        float pe[4], ds[4];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          grad_entry(p, s[4 * c + e], dp[4 * c + e],
+                     q0 + 8 * c + 2 * tg + (e & 1), keys[(e >> 1) & 1],
+                     (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x, pe[e],
+                     ds[e]);
         }
-        // S^T = k q^T and dP^T = v dO^T: rows are this warp's keys
-#pragma unroll
-        for (int kc = 0; kc < KC; ++kc) {
-          uint32_t ka[4], va[4];
-          load_a_frag<LDS>(ka, sK, wr, kc, g, tg);
-          load_a_frag<LDS>(va, sV, wr, kc, g, tg);
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const bf* qr = sQ + (qb + nt * 8 + g) * LDS + kc * 16 + 2 * tg;
-            const bf* dr = sDO + (qb + nt * 8 + g) * LDS + kc * 16 + 2 * tg;
-            mma_bf16(s[nt], ka, ld32(qr), ld32(qr + 8));
-            mma_bf16(dp[nt], va, ld32(dr), ld32(dr + 8));
-          }
-        }
-        // element e of tile nt: key kr[e >> 1], query q0 + qb + 8 nt + 2 tg + (e & 1)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qq = qb + nt * 8 + 2 * tg + (e & 1);
-            float pe, ds;
-            grad_entry(p, s[nt][e], dp[nt][e], q0 + qq, kr[e >> 1],
-                       sLse[qq], sDelta[qq], pe, ds);
-            s[nt][e] = pe;
-            dp[nt][e] = ds;
-          }
-        }
-        // dv += p^T dO, dk += ds^T q: p^T, ds^T (bf16) as A fragments
-#pragma unroll
-        for (int kc = 0; kc < 2; ++kc) {
-          uint32_t pa[4], da[4];
-          pack_a_frag(pa, s, kc);
-          pack_a_frag(da, dp, kc);
-          const bf* do_row = trans_row<LDS>(sDO, qb + kc * 16, lane);
-          const bf* q_row = trans_row<LDS>(sQ, qb + kc * 16, lane);
-#pragma unroll
-          for (int dd = 0; dd < DT / 2; ++dd) {
-            uint32_t f[4];
-            ldmatrix_x4_trans(f, do_row + dd * 16);
-            mma_bf16(dv[2 * dd], pa, f[0], f[1]);
-            mma_bf16(dv[2 * dd + 1], pa, f[2], f[3]);
-            ldmatrix_x4_trans(f, q_row + dd * 16);
-            mma_bf16(dk[2 * dd], da, f[0], f[1]);
-            mma_bf16(dk[2 * dd + 1], da, f[2], f[3]);
-          }
-        }
+        pa[c / 2][2 * (c & 1)] = hopper::pack_bf16(pe[0], pe[1]);
+        pa[c / 2][2 * (c & 1) + 1] = hopper::pack_bf16(pe[2], pe[3]);
+        da[c / 2][2 * (c & 1)] = hopper::pack_bf16(ds[0], ds[1]);
+        da[c / 2][2 * (c & 1) + 1] = hopper::pack_bf16(ds[2], ds[3]);
       }
     }
-  }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      Wgmma<D>::rs_t(dv, pa[kk],
+                     hopper::desc_mn<D>(aQ + Tile<D>::bytes(BN), BN, kk),
+                     it > 0 || kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      Wgmma<D>::rs_t(dk, da[kk], hopper::desc_mn<D>(aQ, BN, kk),
+                     it > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  pipeline<BN / 2>(n_steps, issue, release, body);
+  hopper::fence_regs(dv);
+  hopper::fence_regs(dk);
 
+  bf* dk_out = static_cast<bf*>(p.out0) + b * p.s0.b + hk * p.s0.h;
+  bf* dv_out = static_cast<bf*>(p.out1) + b * p.s1.b + hk * p.s1.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (kr[r] >= p.Tk) continue;
-    bf* krow = dk_out + kr[r] * p.s0.t + 2 * tg;
-    bf* vrow = dv_out + kr[r] * p.s1.t + 2 * tg;
+    if (keys[r] >= p.Tk) continue;
+    bf* krow = dk_out + keys[r] * p.s0.t + 2 * tg;
+    bf* vrow = dv_out + keys[r] * p.s1.t + 2 * tg;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + j * 8) = __floats2bfloat162_rn(
-          dk[j][2 * r] * p.scale, dk[j][2 * r + 1] * p.scale);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + j * 8) =
-          __floats2bfloat162_rn(dv[j][2 * r], dv[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * j) = __floats2bfloat162_rn(
+          dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * j) =
+          __floats2bfloat162_rn(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
     }
   }
 }
@@ -462,14 +640,14 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dq_f32_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * r + i;
-    const long long row = static_cast<long long>(bh) * p.Tq + qi;
+    const long long row = static_cast<long long>(bh) * p.t_pad + qi;
     lse[i] = qi < p.Tq ? p.lse[row] : 0.f;
     delta[i] = qi < p.Tq ? p.delta[row] : 0.f;
 #pragma unroll
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_tiles = dq_kv_tiles(p, q0);
+  const int n_tiles = dq_kv_tiles(p, q0, BQ, BK);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's sKt / sDS reads are done
@@ -552,7 +730,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_f32_kernel(Params p) {
 
   const int nq = (p.Tq + BQ - 1) / BQ;
   int nokey, lower;
-  dkv_q_range(p, k0, nokey, lower);
+  dkv_q_range(p, k0, BQ, nokey, lower);
   for (int jh = 0; jh < p.group; ++jh) {
     const int h = hk * p.group + jh;
     const long long bh = static_cast<long long>(b) * p.H + h;
@@ -568,8 +746,8 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_f32_kernel(Params p) {
       load_tile_f32_t<D>(sDOt, dout, p.sdo.t, q0, p.Tq, LDT);
       if (tid < BQ) {
         const int qi = q0 + tid;
-        sLse[tid] = qi < p.Tq ? p.lse[bh * p.Tq + qi] : 0.f;
-        sDelta[tid] = qi < p.Tq ? p.delta[bh * p.Tq + qi] : 0.f;
+        sLse[tid] = qi < p.Tq ? p.lse[bh * p.t_pad + qi] : 0.f;
+        sDelta[tid] = qi < p.Tq ? p.delta[bh * p.t_pad + qi] : 0.f;
       }
       __syncthreads();
 
@@ -629,9 +807,9 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_f32_kernel(Params p) {
 
 template <int D>
 cudaError_t allow_smem_all() {
-  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem_bytes_bf16<D>());
+  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, DqSmem<D>::BYTES);
   if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem_bytes_bf16<D>());
+    err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, DkvSmem<D>::BYTES);
   if (err == cudaSuccess)
     err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem_bytes_dq_f32<D>());
   if (err == cudaSuccess)
@@ -639,17 +817,44 @@ cudaError_t allow_smem_all() {
   return err;
 }
 
+// The four tile maps of a bf16 launch: q and dO with boxes of `q_rows`
+// rows, k and v of `k_rows`.
+bool encode_maps(BwdArgs& a, int D, int B, int q_rows, int k_rows) {
+  const Params& p = a.p;
+  return hopper::encode_rows_map(&a.tq, p.q, D, p.Tq, p.H, B, p.sq.t, p.sq.h,
+                                 p.sq.b, q_rows) &&
+         hopper::encode_rows_map(&a.tdo, p.dout, D, p.Tq, p.H, B, p.sdo.t,
+                                 p.sdo.h, p.sdo.b, q_rows) &&
+         hopper::encode_rows_map(&a.tk, p.k, D, p.Tk, p.Hkv, B, p.sk.t,
+                                 p.sk.h, p.sk.b, k_rows) &&
+         hopper::encode_rows_map(&a.tv, p.v, D, p.Tk, p.Hkv, B, p.sv.t,
+                                 p.sv.h, p.sv.b, k_rows);
+}
+
 template <int D>
-cudaError_t launch(int which, int dtype, const Params& p, dim3 grid,
+cudaError_t launch(int which, int dtype, BwdArgs& a, int B,
                    cudaStream_t stream) {
-  if (which == 0 && dtype == 0) {
-    flash_bwd_dq_f32_kernel<D><<<grid, NTHREADS, smem_bytes_dq_f32<D>(), stream>>>(p);
-  } else if (which == 0 && dtype == 1) {
-    flash_bwd_dq_bf16_kernel<D><<<grid, NTHREADS, smem_bytes_bf16<D>(), stream>>>(p);
-  } else if (which == 1 && dtype == 0) {
-    flash_bwd_dkv_f32_kernel<D><<<grid, NTHREADS, smem_bytes_dkv_f32<D>(), stream>>>(p);
-  } else if (which == 1 && dtype == 1) {
-    flash_bwd_dkv_bf16_kernel<D><<<grid, NTHREADS, smem_bytes_bf16<D>(), stream>>>(p);
+  const Params& p = a.p;
+  if (dtype == 0) {
+    if (which == 0) {
+      const dim3 grid((p.Tq + BQ - 1) / BQ, B * p.H);
+      flash_bwd_dq_f32_kernel<D><<<grid, NTHREADS, smem_bytes_dq_f32<D>(), stream>>>(p);
+    } else {
+      const dim3 grid((p.Tk + BK - 1) / BK, B * p.Hkv);
+      flash_bwd_dkv_f32_kernel<D><<<grid, NTHREADS, smem_bytes_dkv_f32<D>(), stream>>>(p);
+    }
+  } else if (dtype == 1) {
+    if (which == 0) {
+      using S = DqSmem<D>;
+      if (!encode_maps(a, D, B, 64, BN)) return cudaErrorInvalidValue;
+      const dim3 grid((p.Tq + 63) / 64, B * p.H);
+      flash_bwd_dq_bf16_kernel<D><<<grid, THREADS, S::BYTES, stream>>>(a);
+    } else {
+      using S = DkvSmem<D>;
+      if (!encode_maps(a, D, B, BN, 64)) return cudaErrorInvalidValue;
+      const dim3 grid((p.Tk + 63) / 64, B * p.Hkv);
+      flash_bwd_dkv_bf16_kernel<D><<<grid, THREADS, S::BYTES, stream>>>(a);
+    }
   } else {
     return cudaErrorInvalidValue;
   }
@@ -659,12 +864,14 @@ cudaError_t launch(int which, int dtype, const Params& p, dim3 grid,
 int run(int which, int dtype, int head_dim, const void* q, const void* k,
         const void* v, const void* dout, const void* lse, const void* delta,
         void* out0, void* out1, int B, int H, int Hkv, int Tq, int Tk,
-        const long long* st, int causal, float scale, int vec16,
+        const long long* st, int causal, float scale, int t_pad,
         void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0 ||
+      t_pad < Tq || t_pad % 128) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
+  BwdArgs a;
+  Params& p = a.p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -680,21 +887,20 @@ int run(int which, int dtype, int head_dim, const void* q, const void* k,
   p.Tk = Tk;
   p.causal = causal;
   p.q_offset = Tk - Tq;
-  p.vec16 = vec16;
+  p.t_pad = t_pad;
   p.scale = scale;
+  p.c = scale * 1.4426950408889634f;
   p.sq = {st[0], st[1], st[2]};
   p.sk = {st[3], st[4], st[5]};
   p.sv = {st[6], st[7], st[8]};
   p.sdo = {st[9], st[10], st[11]};
   p.s0 = {st[12], st[13], st[14]};
   p.s1 = {st[15], st[16], st[17]};
-  const dim3 grid = which == 0 ? dim3((Tq + BQ - 1) / BQ, B * H)
-                               : dim3((Tk + BK - 1) / BK, B * Hkv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch<32>(which, dtype, p, grid, s));
-    case 64: return static_cast<int>(launch<64>(which, dtype, p, grid, s));
-    case 128: return static_cast<int>(launch<128>(which, dtype, p, grid, s));
+    case 32: return static_cast<int>(launch<32>(which, dtype, a, B, s));
+    case 64: return static_cast<int>(launch<64>(which, dtype, a, B, s));
+    case 128: return static_cast<int>(launch<128>(which, dtype, a, B, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -702,8 +908,12 @@ int run(int which, int dtype, int head_dim, const void* q, const void* k,
 }  // namespace
 
 // Once per device, before the first launch there: lets every instance of
-// both kernels take its dynamic shared memory. Returns 0 on success.
+// both kernels take its dynamic shared memory, and finds the driver's
+// tensor-map encoder. Returns 0 on success.
 extern "C" int edl_flash_bwd_prepare() {
+  if (hopper::encode_tiled() == nullptr) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
   cudaError_t err = allow_smem_all<32>();
   if (err == cudaSuccess) err = allow_smem_all<64>();
   if (err == cudaSuccess) err = allow_smem_all<128>();
@@ -711,18 +921,20 @@ extern "C" int edl_flash_bwd_prepare() {
 }
 
 // dtype: 0 = fp32, 1 = bf16. `st` holds 18 element strides: the b, h and t
-// axes of q, k, v, dO and the outputs (dq; or dk then dv). vec16: every
-// q/k/v/dO row starts on a 16-byte boundary. Both launch on `stream`, do
-// not synchronise, and return cudaGetLastError() (0 on success).
+// axes of q, k, v, dO and the outputs (dq; or dk then dv). lse and delta
+// are [B*H, t_pad] fp32 rows (lse times log2(e), zero pad; t_pad a
+// multiple of 128, at least Tq). Both launch on `stream`, do not
+// synchronise, and return cudaGetLastError() (0 on success;
+// cudaErrorInvalidValue for bad arguments, or bf16 operands TMA cannot map).
 extern "C" int edl_flash_bwd_dq(int dtype, int head_dim, const void* q,
                                 const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, void* dq, void* unused,
                                 int B, int H, int Hkv, int Tq, int Tk,
                                 const long long* st, int causal, float scale,
-                                int vec16, void* stream) {
+                                int t_pad, void* stream) {
   return run(0, dtype, head_dim, q, k, v, dout, lse, delta, dq, unused, B, H,
-             Hkv, Tq, Tk, st, causal, scale, vec16, stream);
+             Hkv, Tq, Tk, st, causal, scale, t_pad, stream);
 }
 
 extern "C" int edl_flash_bwd_dkv(int dtype, int head_dim, const void* q,
@@ -731,7 +943,7 @@ extern "C" int edl_flash_bwd_dkv(int dtype, int head_dim, const void* q,
                                  const void* delta, void* dk, void* dv,
                                  int B, int H, int Hkv, int Tq, int Tk,
                                  const long long* st, int causal, float scale,
-                                 int vec16, void* stream) {
+                                 int t_pad, void* stream) {
   return run(1, dtype, head_dim, q, k, v, dout, lse, delta, dk, dv, B, H,
-             Hkv, Tq, Tk, st, causal, scale, vec16, stream);
+             Hkv, Tq, Tk, st, causal, scale, t_pad, stream);
 }

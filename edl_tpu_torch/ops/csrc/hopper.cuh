@@ -1,0 +1,388 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels: shared
+// memory descriptors and warpgroup products (wgmma), mbarriers, TMA tile and
+// bulk loads, and the host-side encoding of TMA tensor maps. Raw PTX
+// throughout; no CUTLASS.
+//
+// Shared tiles. A [rows][D] bf16 tile is stored as D / PW column panels of
+// PW = min(D, 64) elements, each [rows][PW] with rows of 2 PW bytes (128 or
+// 64) in TMA's 128- or 64-byte swizzle, which is wgmma's matching layout.
+// Every panel starts on a 1024-byte boundary. One tile then serves as a
+// K-major operand (k = the D axis: S = Q K^T reads K so) and as an MN-major
+// operand (k = the row axis: dQ += dS K reads the same K so).
+//
+// wgmma accumulator of an m64nN product (fp32, N / 2 registers a thread):
+// thread t of the warpgroup (warp w = t / 32, lane = 4 g + tg) holds rows
+// 16 w + g (registers 4 j + 0, 1) and 16 w + g + 8 (4 j + 2, 3) of columns
+// 8 j + 2 tg, 8 j + 2 tg + 1. An A operand from registers (m64k16) has the
+// same layout over 16 columns, so columns [16 kk, 16 kk + 16) of an
+// accumulator, rounded to bf16, are the A operand of k-step kk (pack_a).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// Forces a device lambda inline, so that register arrays it takes by
+// reference stay in registers.
+#define HOPPER_INLINE __attribute__((always_inline))
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ tiles ----
+
+template <int D>
+struct Tile {
+  static constexpr int PW = D < 64 ? D : 64;  // panel width (elements)
+  static constexpr int RB = 2 * PW;           // panel row bytes = swizzle span
+  static constexpr int NP = D / PW;           // panels
+  __host__ __device__ static constexpr uint32_t bytes(int rows) {
+    return rows * D * 2;
+  }
+};
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle span (128 or 64 bytes).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int swizzle) {
+  uint64_t d = (addr & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(swizzle == 128 ? 1 : 2) << 62;
+  return d;
+}
+
+// A `rows`-row tile at shared address `base` as a K-major operand (A of
+// m64, or B of n = rows) at k-step kk (head_dim columns [16 kk, 16 kk + 16)).
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t base, int rows, int kk) {
+  using T = Tile<D>;
+  const uint32_t addr =
+      base + (kk * 16 / T::PW) * rows * T::RB + (kk * 16 % T::PW) * 2;
+  return make_desc(addr, 16, 8 * T::RB, T::RB);
+}
+
+// A `rows`-row tile as an MN-major B operand (k = the row axis, n = the D
+// columns) at k-step kk (rows [16 kk, 16 kk + 16)): 8-row groups 8 RB apart,
+// 64-column panels rows * RB apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t base, int rows, int kk) {
+  using T = Tile<D>;
+  return make_desc(base + kk * 16 * T::RB, rows * T::RB, 8 * T::RB, T::RB);
+}
+
+// ---------------------------------------------------------- wgmma ----
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads or writes of in-flight accumulator
+// registers across the asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for register A operands: the compiler sees an operand as read
+// when the product is issued, while the tensor cores read it until the
+// wait; a fence after the wait keeps its registers from being reused before.
+template <int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Columns [16 kk, 16 kk + 16) of an accumulator, rounded to bf16, as the
+// register A operand of k-step kk.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[N],
+                                       int kk) {
+  a[0] = pack_bf16(x[8 * kk + 0], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// m64nNk16, bf16 in, fp32 accumulate; `acc` 0 overwrites d, 1 adds to it.
+// The forms the backward kernels issue: S and dP from shared memory (N 64)
+// and the accumulations with A from registers (N = head_dim).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  // D (+)= A B, A in registers, B MN-major in shared memory
+  __device__ __forceinline__ static void rs_t(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // D (+)= A B, A and B K-major in shared memory
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t da,
+                                          uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+  // D (+)= A B, A in registers, B MN-major in shared memory
+  __device__ __forceinline__ static void rs_t(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // D (+)= A B, A in registers, B MN-major in shared memory
+  __device__ __forceinline__ static void rs_t(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
+
+// ------------------------------------------------ mbarrier and TMA ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+// Waits for the phase of parity `parity` to complete. A pipeline that
+// stalls for two seconds is broken: the kernel traps (a launch error the
+// caller sees) instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t b = smem_u32(bar);
+  if (mbar_try(b, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try(b, parity)) {
+    if (global_ns() - t0 > 2000000000ull) __trap();
+  }
+}
+
+// One box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion counts its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, 16-byte aligned both sides).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// All rows [r0, r0 + rows) of a [.., T, D] tile map at (h, b): one box per
+// panel (the map's box is [rows][PW]).
+template <int D>
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int r0,
+                                         int h, int b) {
+  using T = Tile<D>;
+#pragma unroll
+  for (int pn = 0; pn < T::NP; ++pn) {
+    tma_load_4d(static_cast<char*>(dst) + pn * rows * T::RB, map, bar,
+                pn * T::PW, r0, h, b);
+  }
+}
+
+// ------------------------------------------------------------- host ----
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda);
+// null if the driver does not offer it.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+  }
+  return fn;
+}
+
+// The tile map of a bf16 [B, Hx, T, D] tensor with element strides
+// (sb, sh, st) and unit stride on D: boxes of [box_rows][PW] (one panel),
+// swizzled as Tile<D>, rows past T read as zero. The stride of an axis of
+// extent 1 is never used and is replaced by a legal one. Returns false if
+// the driver refuses the map (base or strides not 16-byte aligned).
+inline bool encode_rows_map(CUtensorMap* map, const void* base, int D, int T,
+                            int Hx, int B, long long st, long long sh,
+                            long long sb, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const int pw = D < 64 ? D : 64;
+  if (T == 1) st = D;
+  if (Hx == 1) sh = st * T;
+  if (B == 1) sb = sh * Hx;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(T),
+                        static_cast<cuuint64_t>(Hx), static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                           static_cast<cuuint64_t>(sh) * 2,
+                           static_cast<cuuint64_t>(sb) * 2};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(pw),
+                       static_cast<cuuint32_t>(box_rows), 1, 1};
+  cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                    const_cast<void*>(base), dims, strides, box, unit,
+                    CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    pw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                             : CU_TENSOR_MAP_SWIZZLE_64B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

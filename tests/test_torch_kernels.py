@@ -16,9 +16,11 @@ version keeps fp32), fp32 1e-4 * max(1, max|ref|) (summation order).
 import pytest
 import torch
 
+from edl_tpu_torch.ops.attention import _bwd_inputs as _kernel_inputs
 from edl_tpu_torch.ops.attention import (
     _block_grads_reference,
     _bwd_delta,
+    _kernel_operand,
     attention,
     attention_reference_with_lse,
     flash_attention,
@@ -44,6 +46,21 @@ CASES = [
     pytest.param((2, 4, 4, 96, 96, 32), True, torch.bfloat16, id="bf16-d32"),
     pytest.param((2, 4, 4, 64, 64, 32), True, torch.float32, id="fp32-d32"),
     pytest.param((2, 4, 2, 90, 130, 128), False, torch.float32, id="fp32-d128"),
+]
+
+# the backward kernels' tiles are 64 rows (K2: query rows, K3: keys) and
+# 64-row ring tiles, with lse/delta rows padded to 128: one below and one
+# above each edge, rows that see no key in a partial tile, GQA g 4 at the
+# smallest and largest head_dim
+BWD_EDGE_CASES = [
+    pytest.param((1, 2, 2, 63, 63, 64), True, id="t63"),
+    pytest.param((1, 2, 2, 65, 65, 64), True, id="t65"),
+    pytest.param((1, 2, 2, 127, 127, 64), True, id="t127"),
+    pytest.param((1, 2, 2, 129, 129, 64), True, id="t129"),
+    pytest.param((1, 2, 2, 129, 127, 64), False, id="t129x127-noncausal"),
+    pytest.param((1, 4, 4, 200, 70, 64), True, id="tq>tk-partial-nokey-tile"),
+    pytest.param((2, 8, 2, 161, 161, 32), True, id="gqa4-d32"),
+    pytest.param((2, 8, 2, 191, 191, 128), True, id="gqa4-d128"),
 ]
 
 
@@ -104,6 +121,20 @@ def test_flash_backward_matches_plain(cuda, shape, causal, dtype):
         assert err <= limit, "d%s: %.3g > %.3g" % (name, err, limit)
 
 
+@pytest.mark.parametrize("shape,causal", BWD_EDGE_CASES)
+def test_backward_tile_edges_match_plain(cuda, shape, causal):
+    q, k, v, g, lse, delta = _bwd_inputs(shape, causal, torch.bfloat16, cuda)
+    got = flash_backward(q, k, v, g, lse, delta, causal, q.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    want = _block_grads_reference(
+        q, k, v, g, lse, delta, causal, q.shape[-1] ** -0.5)
+    for name, a, ref in zip("q k v".split(), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        err = (a.float() - ref.float()).abs().max().item()
+        limit = TOL_GRAD[torch.bfloat16] * max(1.0, ref.float().abs().max().item())
+        assert err <= limit, "d%s: %.3g > %.3g" % (name, err, limit)
+
+
 def test_backward_writes_the_projection_layout(cuda):
     """dq/dk/dv are [B, H, T, D] views of [B, T, H, D] memory, as o is."""
     q, k, v, g, lse, delta = _bwd_inputs(
@@ -138,7 +169,8 @@ def test_strided_inputs_match_contiguous(cuda):
 
 
 def test_unaligned_rows_match_aligned(cuda):
-    """Rows that do not start on a 16-byte boundary take the scalar loads."""
+    """Rows that do not start on a 16-byte boundary take the forward's
+    scalar loads and go through the backward's contiguous copy."""
     q, k, v = _inputs((2, 4, 4, 130, 130, 64), torch.bfloat16, cuda)
     q_odd, k_odd, v_odd = (
         torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k, v)
@@ -155,16 +187,40 @@ def test_unaligned_rows_match_aligned(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_backward_repeats_bit_for_bit(cuda, dtype):
-    """No atomics: two runs on the same inputs give the same bits."""
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 64),
+                                     (torch.bfloat16, 128)])
+def test_backward_repeats_bit_for_bit(cuda, dtype, d):
+    """No atomics: two runs on the same inputs give the same bits (causal
+    GQA g 4, at head_dim 64 and 128)."""
     q, k, v, g, lse, delta = _bwd_inputs(
-        (2, 8, 2, 320, 320, 64), True, dtype, cuda, seed=5)
-    first = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+        (2, 8, 2, 320, 320, d), True, dtype, cuda, seed=5)
+    first = flash_backward(q, k, v, g, lse, delta, True, d ** -0.5)
     for _ in range(3):
-        again = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+        again = flash_backward(q, k, v, g, lse, delta, True, d ** -0.5)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def test_aligned_views_go_in_without_a_copy(cuda):
+    """The model's [B, H, T, D] views of [B, T, H, D] memory meet TMA's
+    rules and reach the kernels as they are; a view whose rows start off a
+    16-byte boundary goes through a contiguous copy and gives the same
+    gradients."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _inputs((2, 4, 4, 192, 192, 64), torch.bfloat16, cuda))
+    o, lse = flash_forward(q, k, v, causal=True)
+    g = torch.randn_like(o)
+    delta = _bwd_delta(g, o)
+    ins = _kernel_inputs(q, k, v, g, lse, delta, "test")
+    for got, given in zip(ins[:4], (q, k, v, g)):
+        assert got.data_ptr() == given.data_ptr()
+    want = flash_backward(q, k, v, g, lse, delta, True, 0.125)
+    q_odd, k_odd = (torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k))
+    assert q_odd.data_ptr() % 16 != 0 and torch.equal(q_odd, q)
+    assert _kernel_operand(q_odd).data_ptr() != q_odd.data_ptr()
+    got = flash_backward(q_odd, k_odd, v, g, lse, delta, True, 0.125)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_attention_on_cuda_runs_the_kernel(cuda):
