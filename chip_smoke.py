@@ -10,8 +10,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              ``nvcc`` per source, all started together.
 3. kernels - each kernel against its plain PyTorch version, on the card,
              at the main paths' shapes and the edge cases of its contract;
-             kernel, plain and library times (CUDA events) and the bound:
-             the flash forward, then the backward pair (dq, dk/dv).
+             kernel, plain and library times (CUDA events), the bound and
+             the host's time to queue one call: the flash forward (the
+             flagship case twice, bit for bit), then the backward pair
+             (dq, dk/dv).
 4. model   - the flagship TransformerLM (seeded weights, bf16) forward at
              [8, 2048]: finite logits that agree with the same model's
              forward through the plain attention, one flash launch per layer;
@@ -261,7 +263,17 @@ def phase_kernels(torch) -> list:
             err_o = (o.float() - ro.float()).abs().max().item()
             err_lse = (lse - rlse).abs().max().item()
             check(bool(torch.isfinite(o).all()), "flash o not finite %s" % (case,))
+            if idx == FLAGSHIP_CASE:
+                # no atomics: a second run gives the same bits
+                o2, lse2 = flash_forward(q, k, v, causal=causal)
+                check(torch.equal(o, o2) and torch.equal(lse, lse2),
+                      "flash forward does not repeat bit for bit")
+                del o2, lse2
             ms = time_ms(torch, lambda: flash_forward(q, k, v, causal=causal))
+            # the host's side of one call (operand checks, outputs, tensor
+            # maps, the launch)
+            fwd_host_us = host_us(
+                torch, lambda: flash_forward(q, k, v, causal=causal))
             plain_ms = time_ms(
                 torch,
                 lambda: attention_reference_with_lse(q, k, v, causal=causal),
@@ -276,9 +288,13 @@ def phase_kernels(torch) -> list:
             "dtype": dtype, "max_abs_err": err_o, "lse_max_abs_err": err_lse,
             "tol_o": TOL_O[dtype], "tol_lse": TOL_LSE, "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library_max_abs_err": library_err,
+            "library_max_abs_err": library_err, "fwd_host_us": fwd_host_us,
         }
         rec.update(_bound(case))
+        # the products the kernel needs over its time, and its bound over
+        # its time (1 = as fast as the card allows)
+        rec["tflops"] = rec["ops"] / ms / 1e9
+        rec["bound_share"] = rec["bound_ms"] / ms
         emit(rec)
         check(err_o <= TOL_O[dtype],
               "flash o error %.3g > %.3g at %s" % (err_o, TOL_O[dtype], case))
@@ -793,6 +809,7 @@ def main() -> int:
         "plain_ms": flag["plain_ms"],
         "bound_ms": flag["bound_ms"],
         "bound_by": flag["bound_by"],
+        "bound_share": flag["bound_share"],
         "library_ms": flag["library_ms"],
         "shape": flag["shape"],
     }]
@@ -814,6 +831,7 @@ def main() -> int:
             "plain_ms": bflag["plain_ms"],
             "bound_ms": bflag["bounds"][key]["bound_ms"],
             "bound_by": bflag["bounds"][key]["bound_by"],
+            "bound_share": bflag["bound_share"][key],
             "library_ms": bflag["library_ms"],
             "shape": bflag["shape"],
         })

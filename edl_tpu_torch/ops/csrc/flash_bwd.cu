@@ -88,6 +88,8 @@
 
 namespace {
 
+using hopper::exp2_approx;
+using hopper::smem_base;
 using hopper::Tile;
 using hopper::Wgmma;
 
@@ -104,12 +106,6 @@ struct Params {
   float scale, c;  // c = scale * log2(e)
   Strides sq, sk, sv, sdo, s0, s1;
 };
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // p and ds of (query row qi, key kk) from the raw score s and dp, with the
 // masks; lse2 is the row's lse * log2(e).
@@ -192,14 +188,6 @@ struct DkvSmem {
   static constexpr uint32_t STAGE = round_1k(TILES + 2 * 4 * BN);  // + rows
   static constexpr size_t BYTES = 1024 + RES + STAGES * STAGE + 64;
 };
-
-// The dynamic shared memory rounded up to the 1024-byte boundary a
-// swizzled tile needs (each launch asks for 1024 bytes of slack).
-__device__ __forceinline__ unsigned char* smem_base() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const uint32_t addr = hopper::smem_u32(smem_raw);
-  return smem_raw + ((1024 - (addr & 1023)) & 1023);
-}
 
 // Barriers after the tiles: the resident tiles', then full[STAGES] (the
 // loads, one arrival with their bytes) and empty[STAGES] (every thread).

@@ -11,8 +11,10 @@
 // Contract (the dense reference `attention_reference_with_lse` is the spec):
 //   - q [B, H, Tq, D], k/v [B, Hkv, Tk, D] with any element strides on the
 //     first three axes and unit stride on D; GQA reads kv head h / (H / Hkv),
-//     with no repeat in memory. o [B, H, Tq, D] in the input type, lse
-//     [B*H, Tq] fp32.
+//     with no repeat in memory. For bf16 (TMA) the bases are 16-byte aligned
+//     and the strides 16-byte multiples (the wrapper copies an operand that
+//     is not). o [B, H, Tq, D] in the input type, written with the strides
+//     given; lse [B*H, Tq] fp32.
 //   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated).
 //   - Tq and Tk arbitrary: ragged query rows and keys are masked here, so no
 //     shape needs a fallback. Keys past Tk get -inf (p = 0 exactly).
@@ -23,47 +25,75 @@
 //   - causal with Tq > Tk: rows with i + Tk - Tq < 0 see no key, and the
 //     reference then gives a uniform softmax over ALL Tk keys (the mean of v,
 //     lse = -1e30). A query tile holding such a row walks every KV tile, so
-//     the online softmax reproduces exactly that (every score is -1e30).
+//     the online softmax reproduces exactly that (every score is the mask
+//     value).
 //   - scores, the running max m and sum l, the accumulator and lse in fp32;
 //     l clamped at 1e-30; p rounded to the input type before p.v, as the
 //     reference casts probabilities to v.dtype.
-//
-// Design (simple, right first). One CTA of 128 threads per (B*H row,
-// 64-query tile); K/V tiles of 64 keys are staged in shared memory, and the
-// online softmax runs in registers. Two bodies share that structure:
-//   - bf16 (the model's type): tensor cores through mma.sync m16n8k16 with
-//     fp32 accumulation. Each warp owns 16 query rows: its q fragments stay
-//     in registers for the whole K/V walk, S = q k^T lands in the mma
-//     accumulator layout, p is rounded to bf16 and repacked in registers as
-//     the A operand of p.v (no shared-memory round trip), and v's B operand
-//     comes from ldmatrix.trans. Row max and sum reduce over the 4 lanes of
-//     a quad. Global loads are 16-byte vectors when the wrapper says every
-//     row is 16-byte aligned, scalar otherwise. Query tiles are issued
-//     longest first under the causal mask.
-//   - fp32 (the small config): fp32 FMAs on the CUDA cores, which is the
-//     only way to keep full fp32 products (tf32 mma would round q and k).
-//     Each thread owns a 4-query x 8-key block of the score tile.
+//   - no atomics: results repeat bit for bit.
 //
 // Bound at the flagship shape (per launch, causal, B=8, H=16, T=2048, D=64,
 // bf16): 4*D*B*H*T(T+1)/2 = 68.7 GFLOP, about 70 us at 989 TFLOP/s (bf16
 // tensor cores), against 135 MB of q/k/v/o/lse traffic, about 40 us at
-// 3.35 TB/s: compute-bound.
+// 3.35 TB/s: compute-bound. The exp is the second limit: one ex2 per score
+// on the special-function unit (16 a cycle per SM) takes as long as the two
+// products of a score on the tensor cores, so it has to run beside them.
 //
-// What this design leaves on the table: mma.sync reaches only part of
-// Hopper's tensor-core rate (wgmma, issued by a warpgroup from shared
-// memory, is the way to the rest); K/V loads are synchronous and not
-// overlapped with the products inside a CTA (no cp.async / TMA ring, no
-// producer warp), so only other resident CTAs hide them; the exp and the
-// rescale of the accumulator run on every tile (no lazy rescale); K
-// fragments are re-read from shared memory by each of the four warps.
+// Design of the bf16 body: one warpgroup of 64 query rows per CTA and a
+// ring of 64-key K/V slots, 4 of them at head_dim 32 and 64 (at most 168
+// registers a thread and 73 KB of shared memory, so that three CTAs share
+// an SM) and 2 at 128 (81 KB, two CTAs). Measured fastest on the H100
+// against 128-key tiles and two warpgroups a CTA (PERF.md).
+//   - Tensor cores through wgmma.mma_async (bf16 in, fp32 accumulate):
+//     S = Q K^T as m64nBKk16 with Q and K from swizzled shared tiles, and
+//     O += P V with P from registers (the S accumulator, exponentiated and
+//     rounded to bf16, is the A operand as it lies) and V as the MN-major B
+//     operand of the same tile layout, so nothing is transposed.
+//   - Q is loaded once by TMA; K and V tiles stream through a ring of
+//     STAGES slots filled by TMA (cp.async.bulk.tensor) and paced by
+//     full/empty mbarriers. Thread 0 issues the loads as slots free up: a
+//     producer warp would cap every thread's registers (flash_bwd.cu's
+//     notes). The tensor maps are encoded on the host per call and passed
+//     as __grid_constant__ parameters.
+//   - Softmax in the exp2 domain: scores scaled by c = scale * log2(e) in
+//     the one FMA that also subtracts the row max, then ex2.approx; lse is
+//     written back in the natural log.
+//   - Tiles wholly visible to every row of the warpgroup run a body with no
+//     per-element test, and take the row max of the raw scores (one scale
+//     per row); only tiles that cross the causal diagonal or the ragged Tk
+//     edge, or hold rows that see no key, run the masked body.
+//   - Overlap inside the warpgroup (FlashAttention-3's intra-warpgroup
+//     pipelining): tile t's S and tile t-1's P V are issued together, and
+//     the exp of tile t runs while the tensor cores finish P V.
+//   - Query tiles are issued longest first under the causal mask.
+// What it leaves on the table: each warpgroup still waits for its own S
+// before the exp, and only the other CTAs of the SM fill that time; at the
+// flagship shape the kernel runs at about a quarter of the tensor-core
+// peak, while its products and its exps each need well under a third of
+// the time it takes, so latency and not a pipe bounds it (PERF.md). Three
+// warpgroups an SM is what 64-key tiles allow (128-key tiles need about
+// 196 registers, so two CTAs, and lose on the causal walks); there is no
+// producer warpgroup with setmaxnreg and no ping-pong between warpgroups.
+// At the served shapes (few CTAs) the longest causal walk of one CTA sets
+// the time: the KV walk is not split across CTAs.
+//
+// fp32 (the small config): fp32 FMAs on the CUDA cores, which is the only
+// way to keep full fp32 products (tf32 would round q and k). Each thread
+// owns a 4-query x 8-key block of the score tile.
 
 #include <math_constants.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using hopper::exp2_approx;
+using hopper::Tile;
+using hopper::Wgmma;
+
 constexpr float MASK_VALUE = -1e30f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
@@ -71,18 +101,20 @@ struct Params {
   const void* v;
   void* o;
   float* lse;
-  int H, group, Tq, Tk, causal, q_offset, vec16;
-  float scale;
+  int H, group, Tq, Tk, causal, q_offset;
+  float scale, c;  // c = scale * log2(e)
   Strides sq, sk, sv, so;
 };
 
-// Number of KV tiles query tile q0 walks: under the causal mask, up to the
-// last visible key of its last row, unless one of its rows sees no key.
-__device__ __forceinline__ int kv_tiles(const Params& p, int q0) {
-  const int nk = (p.Tk + BK - 1) / BK;
+// Number of KV tiles of `bk` keys that the `rows` query rows from q0 walk:
+// under the causal mask, up to the last visible key of the last row, unless
+// one of the rows sees no key.
+__device__ __forceinline__ int kv_tiles(const Params& p, int q0, int rows,
+                                        int bk) {
+  const int nk = (p.Tk + bk - 1) / bk;
   if (p.causal && q0 + p.q_offset >= 0) {
-    const int q_last = min(q0 + BQ, p.Tq) - 1;
-    return min(nk, (q_last + p.q_offset) / BK + 1);
+    const int q_last = min(q0 + rows, p.Tq) - 1;
+    return min(nk, (q_last + p.q_offset) / bk + 1);
   }
   return nk;
 }
@@ -97,155 +129,262 @@ __device__ __forceinline__ float masked(const Params& p, float s, int qi,
 
 // ---------------------------------------------------------------- bf16 ----
 
+// The bf16 body: one warpgroup of 64 query rows per CTA; K/V ring slots of
+// BK (64) keys, STAGES of them by head_dim (measured fastest, PERF.md).
+constexpr int FWD_THREADS = 128;
+
 template <int D>
-constexpr size_t smem_bytes_bf16() {
-  return sizeof(__nv_bfloat16) * 3 * 64 * (D + LDS_PAD);
+struct FwdSmem {
+  static constexpr int STAGES = D == 128 ? 2 : 4;
+  static constexpr uint32_t Q = Tile<D>::bytes(64);
+  static constexpr uint32_t STAGE = 2 * Tile<D>::bytes(BK);  // K, V
+  // 1024 bytes of alignment slack, Q, the ring, then the barriers: Q's,
+  // full[STAGES] and empty[STAGES]
+  static constexpr size_t BYTES = 1024 + Q + STAGES * STAGE +
+                                  8 * (1 + 2 * STAGES);
+};
+
+struct FwdArgs {
+  CUtensorMap tq, tk, tv;  // boxes of 64 query rows, BK key rows
+  Params p;
+};
+
+// The row extreme (max, or min for a negative scale) of this thread's raw
+// scores of its two rows, over the quad that shares each row.
+template <bool MAX, int N>
+__device__ __forceinline__ void row_extreme(const float (&s)[N],
+                                            float (&x)[2]) {
+  x[0] = s[0];
+  x[1] = s[2];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    x[r] = MAX ? fmaxf(x[r], s[i]) : fminf(x[r], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int lane = 1; lane < 4; lane <<= 1) {
+      const float y = __shfl_xor_sync(0xffffffffu, x[r], lane);
+      x[r] = MAX ? fmaxf(x[r], y) : fminf(x[r], y);
+    }
+  }
+}
+
+// The online softmax of one S tile (keys k0 ..): s becomes p = 2^(x - m)
+// with x the scaled, masked score in the log2 domain and m the new running
+// row max; l takes the rescaled running sum plus this tile's p, and corr
+// the factor the accumulator needs, 2^(m_old - m). Register i of s is row
+// rows[(i >> 1) & 1], key k0 + 8 (i >> 2) + 2 tg + (i & 1).
+template <int N>
+__device__ __forceinline__ void online_softmax(const Params& p, float (&s)[N],
+                                               float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], bool interior,
+                                               const int (&rows)[2], int k0,
+                                               int tg) {
+  float mx[2];
+  if (interior) {
+    // every score is visible: the extreme of the raw scores, scaled once
+    if (p.c >= 0.f) {
+      row_extreme<true>(s, mx);
+    } else {
+      row_extreme<false>(s, mx);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], mx[r] * p.c);
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      s[i] = exp2_approx(fmaf(s[i], p.c, -mx[(i >> 1) & 1]));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int kk = k0 + 8 * (i >> 2) + 2 * tg + (i & 1);
+      s[i] = kk >= p.Tk ? -CUDART_INF_F
+             : p.causal && kk > rows[(i >> 1) & 1] + p.q_offset
+                 ? MASK_VALUE
+                 : s[i] * p.c;
+    }
+    row_extreme<true>(s, mx);
+    // key k0 < Tk scores finite (real or the mask value), so the new max
+    // is finite and 2^(-inf - m) = 0 for keys past Tk
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mx[r] = fmaxf(m[r], mx[r]);
+#pragma unroll
+    for (int i = 0; i < N; ++i) s[i] = exp2_approx(s[i] - mx[(i >> 1) & 1]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    corr[r] = exp2_approx(m[r] - mx[r]);  // 0 on the first tile (m = -inf)
+    m[r] = mx[r];
+    l[r] *= corr[r];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) l[(i >> 1) & 1] += s[i];
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS) flash_fwd_bf16_kernel(Params p) {
-  constexpr int LDS = D + LDS_PAD;
-  constexpr int KC = D / 16;  // k-steps of q k^T
-  constexpr int DT = D / 8;   // 8-wide column tiles of o
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + 64 * LDS;
-  __nv_bfloat16* sV = sK + 64 * LDS;
+__global__ void __launch_bounds__(FWD_THREADS, 2)
+    flash_fwd_bf16_kernel(const __grid_constant__ FwdArgs args) {
+  using S = FwdSmem<D>;
+  constexpr int STAGES = S::STAGES;
+  const Params& p = args.p;
+  unsigned char* sQ = hopper::smem_base();
+  unsigned char* ring = sQ + S::Q;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + STAGES * S::STAGE);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int g = lane >> 2;  // row within the warp's 8-row half
-  const int tg = lane & 3;  // column pair within an 8-column tile
   // under the causal mask the last query tiles walk the most keys: issue
   // them first so they do not trail the launch
-  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-  const int q0 = qt * BQ;
+  const int q0 = (p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * 64;
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int hk = h / p.group;
+  const int n = kv_tiles(p, q0, 64, BK);  // at least 1: key 0 or no key
 
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) +
-                           b * p.sq.b + h * p.sq.h;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) +
-                           b * p.sk.b + hk * p.sk.h;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) +
-                           b * p.sv.b + hk * p.sv.h;
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.so.b +
-                     h * p.so.h;
-
-  load_tile_bf16<D>(sQ, q, p.sq.t, q0, p.Tq, p.vec16);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bars[0], 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], FWD_THREADS);
+    }
+    hopper::fence_barrier_init();
+  }
   __syncthreads();
 
-  // this warp's 16 query rows as mma A fragments, for the whole K/V walk
-  const int wr = warp * 16;
-  uint32_t qf[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) load_a_frag<LDS>(qf[kc], sQ, wr, kc, g, tg);
-
-  // rows qi[0] = wr + g and qi[1] = wr + g + 8 of the tile
-  const int qi[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) {
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // thread 0 loads: Q once, then the K, V tile of each step
+  const bool leader = threadIdx.x == 0;
+  auto load_kv = [&](int kt) HOPPER_INLINE {
+    const int st = kt % STAGES;
+    hopper::mbar_wait(&empty[st], ((kt / STAGES) & 1) ^ 1);
+    unsigned char* sK = ring + st * S::STAGE;
+    hopper::mbar_expect_tx(&full[st], S::STAGE);
+    hopper::tma_tile<D>(sK, &args.tk, &full[st], BK, kt * BK, hk, b);
+    hopper::tma_tile<D>(sK + Tile<D>::bytes(BK), &args.tv, &full[st], BK,
+                        kt * BK, hk, b);
+  };
+  if (leader) {
+    hopper::mbar_expect_tx(bars, S::Q);
+    hopper::tma_tile<D>(sQ, &args.tq, bars, 64, q0, h, b);
+    for (int kt = 0; kt < min(STAGES, n); ++kt) load_kv(kt);
   }
+  __syncwarp();
+  auto ring_k = [&](int kt) HOPPER_INLINE {
+    return hopper::smem_u32(ring + kt % STAGES * S::STAGE);
+  };
+  // every thread of the CTA is done with tile kt: its slot takes tile
+  // kt + STAGES
+  auto release = [&](int kt) HOPPER_INLINE {
+    hopper::mbar_arrive(&empty[kt % STAGES]);
+    __syncwarp();
+    if (leader && kt + STAGES < n) load_kv(kt + STAGES);
+    __syncwarp();
+  };
 
-  const int n_tiles = kv_tiles(p, q0);
-  for (int kt = 0; kt < n_tiles; ++kt) {
+  const int t = threadIdx.x;
+  const int tg = t % 4;
+  const int rows[2] = {q0 + 16 * (t / 32) + t % 32 / 4,
+                       q0 + 16 * (t / 32) + t % 32 / 4 + 8};
+  const uint32_t aQ = hopper::smem_u32(sQ);
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};  // running max, log2 domain
+  float l[2] = {0.f, 0.f};  // this thread's share of the running sums
+  float corr[2];
+  float s[BK / 2];
+  uint32_t pa[BK / 16][4];  // p (bf16) as the A operand of o += p v
+  // no zero fill: the first p v overwrites o (a fill made ptxas serialise
+  // the wgmmas of the backward)
+  float o[D / 2];
+
+  // S = Q K^T of tile kt into s (one commit group)
+  auto issue_s = [&](int kt) HOPPER_INLINE {
+    const uint32_t aK = ring_k(kt);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      Wgmma<BK>::ss(s, hopper::desc_k<D>(aQ, 64, kk),
+                    hopper::desc_k<D>(aK, BK, kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // o (+)= p V of tile kt (one commit group)
+  auto issue_pv = [&](int kt) HOPPER_INLINE {
+    const uint32_t aV = ring_k(kt) + Tile<D>::bytes(BK);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      Wgmma<D>::rs_t(o, pa[kk], hopper::desc_mn<D>(aV, BK, kk),
+                     kt > 0 || kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  auto wait_full = [&](int kt) HOPPER_INLINE {
+    hopper::mbar_wait(&full[kt % STAGES], (kt / STAGES) & 1);
+  };
+  auto softmax = [&](int kt) HOPPER_INLINE {
     const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_bf16<D>(sK, k, p.sk.t, k0, p.Tk, p.vec16);
-    load_tile_bf16<D>(sV, v, p.sv.t, k0, p.Tk, p.vec16);
-    __syncthreads();
+    const bool interior =
+        k0 + BK <= p.Tk && (!p.causal || q0 + p.q_offset >= k0 + BK - 1);
+    online_softmax(p, s, m, l, corr, interior, rows, k0, tg);
+  };
+  auto pack_p = [&]() HOPPER_INLINE {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) hopper::pack_a(pa[kk], s, kk);
+  };
 
-    // S = q k^T: 8 column tiles of 8 keys, fp32 accumulators
-    float s[8][4];
+  hopper::mbar_wait(bars, 0);
+  wait_full(0);
+  hopper::wgmma_fence();
+  issue_s(0);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  softmax(0);
+  pack_p();
+  for (int kt = 1; kt < n; ++kt) {
+    // tile kt's S and tile kt - 1's p V go in together; the exp of tile kt
+    // runs while the tensor cores finish p V
+    wait_full(kt);
+    hopper::wgmma_fence();
+    issue_s(kt);
+    issue_pv(kt - 1);
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    softmax(kt);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    release(kt - 1);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kb = sK + (nt * 8 + g) * LDS + 2 * tg;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        mma_bf16(s[nt], qf[kc], ld32(kb + kc * 16), ld32(kb + kc * 16 + 8));
-      }
-    }
-
-    // scale, mask, online softmax; element e of a tile is row qi[e >> 1],
-    // key k0 + 8 nt + 2 tg + (e & 1)
-    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x =
-            masked(p, s[nt][e], qi[e >> 1], k0 + nt * 8 + 2 * tg + (e & 1));
-        s[nt][e] = x;
-        mt[e >> 1] = fmaxf(mt[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
-      mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-      // key k0 < Tk scores finite (real or the mask value), so the new max
-      // is finite and exp(-inf - m) = 0 for keys past Tk
-      const float m_new = fmaxf(m[r], mt[r]);
-      corr[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = __expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += pe;
-        s[nt][e] = pe;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      acc[j][0] *= corr[0];
-      acc[j][1] *= corr[0];
-      acc[j][2] *= corr[1];
-      acc[j][3] *= corr[1];
-    }
-
-    // o += p v: p (rounded to bf16) is already laid out as A fragments
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      pack_a_frag(pa, s, kc);
-      const __nv_bfloat16* vb = trans_row<LDS>(sV, kc * 16, lane);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vb + dp * 16);
-        mma_bf16(acc[2 * dp], pa, vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pa, vf[2], vf[3]);
-      }
-    }
+    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    pack_p();
   }
+  hopper::wgmma_fence();
+  issue_pv(n - 1);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(o);
+  hopper::fence_regs(pa);
+  release(n - 1);
 
+  using bf = __nv_bfloat16;
+  bf* out = static_cast<bf*>(p.o) + b * p.so.b + h * p.so.h;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (qi[r] >= p.Tq) continue;
+    if (rows[r] >= p.Tq) continue;
     const float li = fmaxf(l[r], 1e-30f);
     const float inv = 1.f / li;
-    __nv_bfloat16* orow = o + qi[r] * p.so.t + 2 * tg;
+    bf* orow = out + rows[r] * p.so.t + 2 * tg;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = __floats2bfloat162_rn(
-          acc[j][2 * r] * inv, acc[j][2 * r + 1] * inv);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }
     if (tg == 0) {
-      p.lse[static_cast<long long>(bh) * p.Tq + qi[r]] = m[r] + logf(li);
+      // a row that sees no key has m = the mask value itself, as the
+      // reference's lse (not scaled into the log2 domain)
+      const bool no_key = p.causal && rows[r] + p.q_offset < 0;
+      p.lse[static_cast<long long>(bh) * p.Tq + rows[r]] =
+          (no_key ? MASK_VALUE : m[r] * LN2) + logf(li);
     }
   }
 }
@@ -295,7 +434,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
     for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
   }
 
-  const int n_tiles = kv_tiles(p, q0);
+  const int n_tiles = kv_tiles(p, q0, BQ, BK);
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's sV / sPt reads are done
@@ -408,21 +547,29 @@ template <int D>
 cudaError_t allow_smem_dtypes() {
   cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem_bytes_f32<D>());
   if (err != cudaSuccess) return err;
-  return allow_smem(flash_fwd_bf16_kernel<D>, smem_bytes_bf16<D>());
+  return allow_smem(flash_fwd_bf16_kernel<D>, FwdSmem<D>::BYTES);
 }
 
 template <int D>
-cudaError_t launch_dtype(int dtype, const Params& p, dim3 grid,
-                         cudaStream_t stream) {
-  switch (dtype) {
-    case 0:
-      flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem_bytes_f32<D>(), stream>>>(p);
-      break;
-    case 1:
-      flash_fwd_bf16_kernel<D><<<grid, NTHREADS, smem_bytes_bf16<D>(), stream>>>(p);
-      break;
-    default:
+cudaError_t launch(int dtype, FwdArgs& a, int B, int Hkv,
+                   cudaStream_t stream) {
+  const Params& p = a.p;
+  if (dtype == 0) {
+    const dim3 grid((p.Tq + BQ - 1) / BQ, B * p.H);
+    flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem_bytes_f32<D>(), stream>>>(p);
+  } else if (dtype == 1) {
+    if (!hopper::encode_rows_map(&a.tq, p.q, D, p.Tq, p.H, B, p.sq.t, p.sq.h,
+                                 p.sq.b, 64) ||
+        !hopper::encode_rows_map(&a.tk, p.k, D, p.Tk, Hkv, B, p.sk.t, p.sk.h,
+                                 p.sk.b, BK) ||
+        !hopper::encode_rows_map(&a.tv, p.v, D, p.Tk, Hkv, B, p.sv.t, p.sv.h,
+                                 p.sv.b, BK)) {
       return cudaErrorInvalidValue;
+    }
+    const dim3 grid((p.Tq + 63) / 64, B * p.H);
+    flash_fwd_bf16_kernel<D><<<grid, FWD_THREADS, FwdSmem<D>::BYTES, stream>>>(a);
+  } else {
+    return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
@@ -431,8 +578,12 @@ cudaError_t launch_dtype(int dtype, const Params& p, dim3 grid,
 
 // Once per device, before the first launch there: lets every instance of the
 // kernel take its dynamic shared memory (the attribute is per device, so it
-// stays off the launch path). Returns 0 on success.
+// stays off the launch path) and finds the driver's tensor-map encoder.
+// Returns 0 on success.
 extern "C" int edl_flash_fwd_prepare() {
+  if (hopper::encode_tiled() == nullptr) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
   cudaError_t err = allow_smem_dtypes<32>();
   if (err == cudaSuccess) err = allow_smem_dtypes<64>();
   if (err == cudaSuccess) err = allow_smem_dtypes<128>();
@@ -440,9 +591,11 @@ extern "C" int edl_flash_fwd_prepare() {
 }
 
 // dtype: 0 = fp32, 1 = bf16. Strides are in elements, for the b, h and t
-// axes of each [B, heads, T, D] tensor. vec16: every q/k/v row starts on a
-// 16-byte boundary (bf16 loads as 16-byte vectors). Launches on `stream`,
-// does not synchronise, and returns cudaGetLastError() (0 on success).
+// axes of each [B, heads, T, D] tensor; for bf16 the q/k/v bases are
+// 16-byte aligned and their strides 16-byte multiples. Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() (0 on
+// success; cudaErrorInvalidValue for bad arguments, or bf16 operands TMA
+// cannot map).
 extern "C" int edl_flash_fwd(
     int dtype, int head_dim, const void* q, const void* k, const void* v,
     void* o, void* lse, int B, int H, int Hkv, int Tq, int Tk,
@@ -450,11 +603,12 @@ extern "C" int edl_flash_fwd(
     long long k_sb, long long k_sh, long long k_st,
     long long v_sb, long long v_sh, long long v_st,
     long long o_sb, long long o_sh, long long o_st,
-    int causal, float scale, int vec16, void* stream) {
+    int causal, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Tq <= 0 || Tk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p;
+  FwdArgs a;
+  Params& p = a.p;
   p.q = q;
   p.k = k;
   p.v = v;
@@ -466,18 +620,17 @@ extern "C" int edl_flash_fwd(
   p.Tk = Tk;
   p.causal = causal;
   p.q_offset = Tk - Tq;
-  p.vec16 = vec16;
   p.scale = scale;
+  p.c = scale * 1.4426950408889634f;
   p.sq = {q_sb, q_sh, q_st};
   p.sk = {k_sb, k_sh, k_st};
   p.sv = {v_sb, v_sh, v_st};
   p.so = {o_sb, o_sh, o_st};
-  const dim3 grid((Tq + BQ - 1) / BQ, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_dtype<32>(dtype, p, grid, s));
-    case 64: return static_cast<int>(launch_dtype<64>(dtype, p, grid, s));
-    case 128: return static_cast<int>(launch_dtype<128>(dtype, p, grid, s));
+    case 32: return static_cast<int>(launch<32>(dtype, a, B, Hkv, s));
+    case 64: return static_cast<int>(launch<64>(dtype, a, B, Hkv, s));
+    case 128: return static_cast<int>(launch<128>(dtype, a, B, Hkv, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -34,6 +34,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The dynamic shared memory rounded up to the 1024-byte boundary a
+// swizzled tile needs (each launch asks for 1024 bytes of slack).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t addr = smem_u32(smem_raw);
+  return smem_raw + ((1024 - (addr & 1023)) & 1023);
+}
+
 // ------------------------------------------------------------ tiles ----
 
 template <int D>
@@ -124,9 +132,16 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[N],
   a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
 }
 
+// 2^x on the special-function unit (flushes denormals; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // m64nNk16, bf16 in, fp32 accumulate; `acc` 0 overwrites d, 1 adds to it.
-// The forms the backward kernels issue: S and dP from shared memory (N 64)
-// and the accumulations with A from registers (N = head_dim).
+// The forms the kernels issue: products of two shared tiles (S, dP: N 64
+// keys) and accumulations with A from registers (N = head_dim).
 template <int N>
 struct Wgmma;
 

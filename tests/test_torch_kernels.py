@@ -20,6 +20,7 @@ from edl_tpu_torch.ops.attention import _bwd_inputs as _kernel_inputs
 from edl_tpu_torch.ops.attention import (
     _block_grads_reference,
     _bwd_delta,
+    _fwd_inputs,
     _kernel_operand,
     attention,
     attention_reference_with_lse,
@@ -64,6 +65,26 @@ BWD_EDGE_CASES = [
 ]
 
 
+# the forward's tiles are 64 query rows by 64 keys: one below and one
+# above each edge (and the second edge, 128) in Tq and Tk, rows that see
+# no key in a partial tile, GQA g 4 at the smallest and largest head_dim,
+# ragged non-causal Tq != Tk
+FWD_EDGE_CASES = [
+    pytest.param((1, 2, 2, 63, 63, 64), True, id="t63"),
+    pytest.param((1, 2, 2, 65, 65, 64), True, id="t65"),
+    pytest.param((1, 2, 2, 127, 127, 64), True, id="t127"),
+    pytest.param((1, 2, 2, 129, 129, 64), True, id="t129"),
+    pytest.param((1, 2, 2, 255, 257, 64), True, id="t255x257"),
+    pytest.param((1, 2, 2, 65, 63, 128), True, id="t65x63-d128"),
+    pytest.param((1, 2, 2, 129, 127, 64), False, id="t129x127-noncausal"),
+    pytest.param((1, 2, 2, 63, 129, 32), False, id="t63x129-noncausal-d32"),
+    pytest.param((1, 4, 4, 200, 70, 64), True, id="tq>tk-partial-nokey-tile"),
+    pytest.param((1, 4, 4, 300, 129, 128), True, id="tq>tk-d128"),
+    pytest.param((2, 8, 2, 161, 161, 32), True, id="gqa4-d32"),
+    pytest.param((2, 8, 2, 191, 191, 128), True, id="gqa4-d128"),
+]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -101,6 +122,44 @@ def test_flash_forward_matches_plain(cuda, shape, causal, dtype):
     assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
     assert (o.float() - ro.float()).abs().max().item() <= TOL_O[dtype]
     assert (lse - rlse).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("shape,causal", FWD_EDGE_CASES)
+def test_forward_tile_edges_match_plain(cuda, shape, causal):
+    q, k, v = _inputs(shape, torch.bfloat16, cuda, seed=7)
+    o, lse = flash_forward(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ro, rlse = attention_reference_with_lse(q, k, v, causal=causal)
+    assert bool(torch.isfinite(o).all())
+    assert (o.float() - ro.float()).abs().max().item() <= TOL_O[torch.bfloat16]
+    assert (lse - rlse).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+def test_forward_any_scale_matches_plain(cuda, scale):
+    """The interior tiles take the row max of the raw scores and scale it
+    once: a negative scale turns that into the row min, a zero scale gives
+    a uniform softmax."""
+    q, k, v = _inputs((1, 4, 2, 200, 200, 64), torch.bfloat16, cuda, seed=9)
+    for causal in (True, False):
+        o, lse = flash_forward(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        ro, rlse = attention_reference_with_lse(q, k, v, causal=causal,
+                                                scale=scale)
+        assert (o.float() - ro.float()).abs().max().item() <= TOL_O[torch.bfloat16]
+        assert (lse - rlse).abs().max().item() <= TOL_LSE
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_forward_repeats_bit_for_bit(cuda, d):
+    """No atomics: two runs on the same inputs give the same bits (causal
+    GQA g 4)."""
+    q, k, v = _inputs((2, 8, 2, 320, 320, d), torch.bfloat16, cuda, seed=5)
+    first = flash_forward(q, k, v, causal=True)
+    for _ in range(3):
+        again = flash_forward(q, k, v, causal=True)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("shape,causal,dtype", CASES)
@@ -169,13 +228,15 @@ def test_strided_inputs_match_contiguous(cuda):
 
 
 def test_unaligned_rows_match_aligned(cuda):
-    """Rows that do not start on a 16-byte boundary take the forward's
-    scalar loads and go through the backward's contiguous copy."""
+    """Rows that do not start on a 16-byte boundary (an odd row stride and
+    an unaligned base, which TMA cannot read) go through a contiguous copy
+    in the forward and the backward, and give the aligned result."""
     q, k, v = _inputs((2, 4, 4, 130, 130, 64), torch.bfloat16, cuda)
     q_odd, k_odd, v_odd = (
         torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k, v)
     )
     assert q_odd.stride(2) % 8 != 0 and torch.equal(q_odd, q)
+    assert _fwd_inputs(q_odd, k_odd, v_odd)[0].data_ptr() != q_odd.data_ptr()
     o, lse = flash_forward(q_odd, k_odd, v_odd, causal=True)
     o2, lse2 = flash_forward(q, k, v, causal=True)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
@@ -185,6 +246,21 @@ def test_unaligned_rows_match_aligned(cuda):
     want = flash_backward(q, k, v, g, lse, delta, True, 0.125)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_fp32_unaligned_views_go_in_as_they_are(cuda):
+    """The fp32 forward body loads scalars: views off a 16-byte boundary
+    reach it without a copy and give the contiguous result."""
+    q, k, v = _inputs((2, 4, 4, 70, 70, 32), torch.float32, cuda)
+    q_odd, k_odd, v_odd = (
+        torch.cat([t[..., :1], t], dim=-1)[..., 1:] for t in (q, k, v)
+    )
+    for got, given in zip(_fwd_inputs(q_odd, k_odd, v_odd),
+                          (q_odd, k_odd, v_odd)):
+        assert got.data_ptr() == given.data_ptr()
+    o, lse = flash_forward(q_odd, k_odd, v_odd, causal=True)
+    o2, lse2 = flash_forward(q, k, v, causal=True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 64),
@@ -203,11 +279,13 @@ def test_backward_repeats_bit_for_bit(cuda, dtype, d):
 
 def test_aligned_views_go_in_without_a_copy(cuda):
     """The model's [B, H, T, D] views of [B, T, H, D] memory meet TMA's
-    rules and reach the kernels as they are; a view whose rows start off a
-    16-byte boundary goes through a contiguous copy and gives the same
-    gradients."""
+    rules and reach the kernels (forward and backward) as they are; a view
+    whose rows start off a 16-byte boundary goes through a contiguous copy
+    and gives the same gradients."""
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in _inputs((2, 4, 4, 192, 192, 64), torch.bfloat16, cuda))
+    for got, given in zip(_fwd_inputs(q, k, v), (q, k, v)):
+        assert got.data_ptr() == given.data_ptr()
     o, lse = flash_forward(q, k, v, causal=True)
     g = torch.randn_like(o)
     delta = _bwd_delta(g, o)
