@@ -31,16 +31,35 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              tokens/s, MFU, peak memory and device time by kernel. Then one
              step's loss and gradients at [2, 2048] against the same model
              with the plain attention.
+7. elastic - the elastic training path, in three fresh worker processes
+             started with the launcher's ``EDL_*`` environment:
+             ``ElasticTrainer.fit`` of the flagship (AdamW under
+             ``linear_scaled_lr``, 3 seeded batches an epoch) saves each
+             epoch into a temporary directory; stage 1 trains epochs 0-1,
+             stage 2 restarts, restores (bit for bit what stage 1 saved,
+             the stamped parameter norm) and trains epochs 2-3, the
+             reference trains 0-3 without a checkpoint. Stage 2's losses
+             agree with the reference's, its steps launch 12/12/12 flash
+             kernels, the step counter ends at 12. Then two flagship steps
+             through the data-parallel wrapper over a one-rank NCCL group
+             equal the bare model's. Checkpoint bytes, save and restore
+             seconds, the time to recover (spawn to first finished step),
+             the trainer's steady step against phase train's and one
+             profiled trainer step's device idle share.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without CUDA, or outside a checkout of the repo, it exits non-zero and
 prints no result. Imports nothing of JAX or of the JAX package.
+``python3 chip_smoke.py --elastic-child ROLE CKPT_DIR OUT`` is phase
+elastic's worker process, started by the phase itself.
 """
 
 import concurrent.futures
+import hashlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -97,6 +116,23 @@ SERVE_SEQ = 1024
 SERVE_ROWS = (1, 3)
 TRAIN_STEPS = 10
 GRAD_CHECK_BATCH = 2
+# the flagship training configuration of phases train and elastic
+FLAGSHIP_TRAIN = {"batch": 8, "seq": 2048, "d_model": 1024, "num_heads": 16,
+                  "num_kv_heads": None, "num_layers": 12, "d_ff": 2688,
+                  "vocab_size": 32000, "remat": "save_flash"}
+# phase elastic: stage 1 trains epochs 0-1 and saves, stage 2 restarts and
+# trains epochs 2-3 from that checkpoint, the reference trains 0-3 at once
+ELASTIC_EPOCHS = 4
+ELASTIC_STAGE1_EPOCHS = 2
+ELASTIC_BATCHES = 3  # per epoch
+ELASTIC_ROLES = ("stage1", "stage2", "reference")
+# the reference run's step profiled for the device idle share (epoch 3's
+# second step; the steady step time is read from epochs 1 and 2)
+ELASTIC_PROFILE_STEP = 10
+# resumed epoch losses against the uninterrupted run's: relative
+TOL_RESUME = 1e-3
+# DDP over a one-rank group against the bare model, two steps: relative
+TOL_DDP = 1e-6
 
 
 def emit(obj) -> None:
@@ -688,9 +724,7 @@ def _grad_check(torch, cfg) -> dict:
 def phase_train(torch, smi: str) -> dict:
     from edl_tpu_torch.tools import lm_bench
 
-    cfg = {"batch": 8, "seq": 2048, "d_model": 1024, "num_heads": 16,
-           "num_kv_heads": None, "num_layers": 12, "d_ff": 2688,
-           "vocab_size": 32000, "remat": "save_flash"}
+    cfg = FLAGSHIP_TRAIN
     state, step, batch = lm_bench.build(cfg, "cuda", seed=0)
     model = state.apply_fn
     layers = model.num_layers
@@ -766,6 +800,369 @@ def phase_train(torch, smi: str) -> dict:
     return out
 
 
+def elastic_env(role: str, base=None) -> dict:
+    """The environment the launcher gives the one worker of a one-worker
+    stage (``edl_tpu/launch/process.py`` ``worker_env``): job, pod, stage,
+    rank 0 of 1 and the spawn stamp the time to recover starts from. Each
+    stage of the phase is its own stage token, as after a restart; the
+    reference run is a job of its own."""
+    env = dict(os.environ if base is None else base)
+    for key in ("EDL_COORDINATOR", "EDL_STORE_ENDPOINT", "EDL_CKPT_PATH",
+                "EDL_CKPT_LOCAL_DIR", "EDL_HOT_RESTAGE", "EDL_WARM_ONLY",
+                "EDL_WORKER_ENDPOINTS"):
+        env.pop(key, None)
+    env.update({
+        "EDL_JOB_ID": ("chip-smoke-reference" if role == "reference"
+                       else "chip-smoke-elastic"),
+        "EDL_POD_ID": "pod-0",
+        "EDL_STAGE": "stage-" + role,
+        "EDL_WORKER_RANK": "0",
+        "EDL_WORKER_RANK_IN_POD": "0",
+        "EDL_NUM_WORKERS": "1",
+        "EDL_SPAWN_TS": repr(time.time()),
+        "PYTHONPATH": HERE + os.pathsep + env.get("PYTHONPATH", ""),
+    })
+    return env
+
+
+def state_digest(torch, state) -> dict:
+    """sha256 of every tensor a checkpoint of ``state`` holds, by name:
+    the parameters, the optimizer's state (AdamW's moments and step
+    counts), the train step and the optimizer's update count."""
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+
+    model_sd, optim_sd = get_state_dict(state.apply_fn,
+                                        state.opt_state.optimizer)
+    tensors = {"model/" + k: v for k, v in model_sd.items()}
+    for name, slots in optim_sd["state"].items():
+        for slot, v in slots.items():
+            if torch.is_tensor(v):
+                tensors["optim/%s/%s" % (name, slot)] = v
+    tensors["step"] = state.step
+    tensors["count"] = torch.tensor(state.opt_state.count)
+    out = {}
+    for key, t in sorted(tensors.items()):
+        raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+        out[key] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def elastic_data(cfg: dict):
+    """``data_fn(epoch)``: the epoch's ``ELASTIC_BATCHES`` next-token
+    batches, seeded by the epoch (the same in every run)."""
+    import numpy as np
+
+    def data_fn(epoch):
+        rng = np.random.RandomState(1000 + epoch)
+        for _ in range(ELASTIC_BATCHES):
+            tok = rng.randint(0, cfg["vocab_size"],
+                              (cfg["batch"], cfg["seq"] + 1)).astype(np.int64)
+            yield tok[:, :-1], tok[:, 1:]
+
+    return data_fn
+
+
+def _spans(events, name):
+    return [ev for ev in events if ev.get("name") == name and "dur" in ev]
+
+
+def _profiling_step(torch, rec, at_call: int):
+    """A ``make_train_step`` whose step number ``at_call`` (0-based) runs
+    under the profiler and records its device breakdown in ``rec``."""
+    from edl_tpu_torch.train import loop as train_loop
+
+    make = train_loop.make_train_step
+
+    def make_profiled(*args, **kwargs):
+        inner = make(*args, **kwargs)
+        calls = [0]
+
+        def step(state, batch):
+            calls[0] += 1
+            if calls[0] - 1 != at_call:
+                return inner(state, batch)
+            out = []
+            rec["profile"] = _device_breakdown(
+                torch, lambda: out.append(inner(state, batch)))
+            return out[0]
+
+        return step
+
+    train_loop.make_train_step = make_profiled
+
+
+def _timed(torch, rec, key, module, name):
+    """Wrap ``module.name``: its time (synchronised) lands in ``rec[key]``."""
+    fn = getattr(module, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.monotonic()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec[key] = time.monotonic() - t0
+        return out
+
+    setattr(module, name, timed)
+
+
+def _digesting_restore(torch, rec):
+    """Wrap ``CheckpointManager.restore``: the time of the restore the
+    trainer makes, then the digest of what it restored and the restored
+    parameter norm against the fingerprint stamped at save."""
+    from edl_tpu_torch.checkpoint import manager
+    from edl_tpu_torch.obs.numerics import host_param_norm
+
+    restore = manager.CheckpointManager.restore
+
+    def digesting(self, template, step=None):
+        t0 = time.monotonic()
+        state, status = restore(self, template, step)
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        rec["restored_digest"] = state_digest(torch, state)
+        rec["restored_epoch"] = status.epoch if status else None
+        fp = ((status.meta or {}).get("numerics") or {}) if status else {}
+        rec["stamped_param_norm"] = fp.get("param_norm")
+        rec["restored_param_norm"] = host_param_norm(state)
+        rec["digest_s"] = time.monotonic() - t0
+        return state, status
+
+    manager.CheckpointManager.restore = digesting
+
+
+def elastic_child(torch, role: str, ckpt_dir: str, out_path: str) -> None:
+    """One fresh worker process of phase elastic, launched with the
+    environment of :func:`elastic_env`: ``ElasticTrainer.fit`` of the
+    flagship (AdamW under ``linear_scaled_lr(1e-3, 1)``, per-epoch saves
+    into ``ckpt_dir``; the reference saves nothing), to epoch 2 (stage1)
+    or 4. Writes what it measured to ``out_path`` as JSON."""
+    from edl_tpu_torch.obs import trace as obs_trace
+    from edl_tpu_torch.tools import lm_bench
+    from edl_tpu_torch.train import (
+        AdjustRegistry,
+        ElasticTrainer,
+        adamw,
+        linear_scaled_lr,
+    )
+
+    spawn_ts = float(os.environ["EDL_SPAWN_TS"])
+    # the interpreter, torch and CUDA's first touch
+    rec = {"role": role, "import_s": time.time() - spawn_ts}
+    cfg = FLAGSHIP_TRAIN
+    from edl_tpu_torch.train import loop as train_loop
+
+    # the weights' init on the card and the optimizer's construction (the
+    # first in a process imports torch._dynamo)
+    _timed(torch, rec, "create_state_s", train_loop, "create_state")
+    if role == "stage2":
+        _digesting_restore(torch, rec)
+    if role == "reference":
+        _profiling_step(torch, rec, ELASTIC_PROFILE_STEP)
+    adjusts = AdjustRegistry()
+    adjusts.register(linear_scaled_lr(1e-3, 1))
+    t0 = time.monotonic()
+    model = lm_bench.build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    rec["model_build_s"] = time.monotonic() - t0
+    trainer = ElasticTrainer(
+        model,
+        lambda overrides: adamw(overrides["lr"]),
+        lm_bench.lm_loss,
+        ckpt_dir=None if role == "reference" else ckpt_dir,
+        adjusts=adjusts,
+        seed=0,
+        device="cuda",
+    )
+    epochs = ELASTIC_STAGE1_EPOCHS if role == "stage1" else ELASTIC_EPOCHS
+    losses = {}
+    _zero_counts()  # the elastic path's run starts here
+    state = trainer.fit(
+        elastic_data(cfg), epochs,
+        on_epoch_end=lambda e, m: losses.__setitem__(e, float(m["loss"])),
+    )
+    torch.cuda.synchronize()
+    rec["launches"] = _launch_counts()
+    rec["losses"] = {str(e): v for e, v in sorted(losses.items())}
+    rec["step"] = int(state.step)
+    events = obs_trace.get_tracer().to_events()
+    first = _spans(events, "first_step")[0]
+    # the child's start (the parent's spawn stamp) to its first finished
+    # step, less the digest this phase adds inside the restore
+    rec["time_to_recover_s"] = (
+        (first["ts"] + first["dur"]) / 1e6 - spawn_ts - rec.get("digest_s", 0.0))
+    rec["first_step_s"] = first["dur"] / 1e6
+    # spawn to init() in fit, and init() to the stage barrier's end
+    # (device placement, weights, the restore)
+    rec["boot_s"] = _spans(events, "worker_boot")[0]["dur"] / 1e6
+    rec["setup_s"] = _spans(events, "train_setup")[0]["dur"] / 1e6
+    rec["save_s"] = [ev["dur"] / 1e6 for ev in _spans(events, "ckpt_save")]
+    rec["epoch_ms_per_step"] = {
+        str(ev["args"]["epoch"]): ev["dur"] / 1e3 / ev["args"]["steps"]
+        for ev in _spans(events, "train_epoch")}
+    if role == "stage1":
+        rec["digest"] = state_digest(torch, state)
+    with open(out_path, "w") as fh:
+        json.dump(rec, fh)
+
+
+def _ddp_check(torch) -> dict:
+    """Two flagship steps through ``parallel.data_parallel`` over a
+    one-rank NCCL process group against the same steps of the bare model:
+    the losses must agree (a one-rank all-reduce and the average over one
+    rank change nothing)."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.parallel import data_parallel, make_mesh
+    from edl_tpu_torch.tools import lm_bench
+    from edl_tpu_torch.utils.net import find_free_ports
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="tcp://127.0.0.1:%d" % find_free_ports(1)[0],
+        world_size=1, rank=0)
+    try:
+        runs = {}
+        for wrapped in (False, True):
+            state, step, batch = lm_bench.build(FLAGSHIP_TRAIN, "cuda", seed=0)
+            if wrapped:
+                state.apply_fn = data_parallel(state.apply_fn,
+                                               make_mesh(device="cuda"))
+            losses = []
+            for _ in range(2):
+                state, m = step(state, batch)
+                losses.append(m["loss"])
+            runs[wrapped] = [float(v) for v in torch.stack(losses).tolist()]
+            kind = type(state.apply_fn).__name__
+            del state, step, batch, m
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs[True], runs[False]))
+    return {"backend": "nccl", "world_size": 1, "wrapper": kind,
+            "losses_wrapped": runs[True], "losses_bare": runs[False],
+            "max_rel_diff": rel, "bit_equal": runs[True] == runs[False],
+            "tol": TOL_DDP}
+
+
+def phase_elastic(torch, smi: str, train: dict) -> dict:
+    """The elastic training path: three fresh processes of the worker the
+    launcher would start (``elastic_child``): stage 1 trains to epoch 2
+    and checkpoints, stage 2 restarts from that checkpoint and trains to
+    epoch 4, the reference trains to epoch 4 without one. Then the DDP
+    check. The checkpoint directory is removed afterwards."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="edl-elastic-")
+    ckpt = os.path.join(work, "ckpt")
+    recs, logs = {}, {}
+    try:
+        for role in ELASTIC_ROLES:
+            out = os.path.join(work, role + ".json")
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--elastic-child", role, ckpt, out],
+                capture_output=True, text=True, env=elastic_env(role),
+                cwd=HERE, timeout=600,
+            )
+            logs[role] = proc.stdout.splitlines()
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stdout[-4000:] + proc.stderr[-8000:])
+                raise AssertionError("elastic %s exited %d"
+                                     % (role, proc.returncode))
+            with open(out) as fh:
+                recs[role] = json.load(fh)
+        ckpt_bytes = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(os.path.join(ckpt, str(
+                ELASTIC_EPOCHS * ELASTIC_BATCHES)))
+            for f in files)
+        steps = sorted(int(n) for n in os.listdir(ckpt) if n.isdigit())
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    ddp = _ddp_check(torch)
+    s1, s2, ref = (recs[r] for r in ELASTIC_ROLES)
+    resumed = [ln for ln in logs["stage2"] if "resumed at epoch" in ln]
+    rel = {e: abs(s2["losses"][e] - ref["losses"][e]) / abs(ref["losses"][e])
+           for e in s2["losses"]}
+    steps2 = (ELASTIC_EPOCHS - ELASTIC_STAGE1_EPOCHS) * ELASTIC_BATCHES
+    per_step = {k: v / steps2 for k, v in s2["launches"].items()}
+    steady = [ref["epoch_ms_per_step"][str(e)] for e in (1, 2)]
+    steady_ms = sum(steady) / len(steady)
+    prof = ref.get("profile") or {}
+    out = {
+        "phase": "elastic", "config": "flagship",
+        "tokens": [FLAGSHIP_TRAIN["batch"], FLAGSHIP_TRAIN["seq"]],
+        "optimizer": "adamw, linear_scaled_lr(1e-3, 1)",
+        "epochs": ELASTIC_EPOCHS, "batches_per_epoch": ELASTIC_BATCHES,
+        "losses": {r: recs[r]["losses"] for r in ELASTIC_ROLES},
+        "resumed_line": resumed[0] if resumed else None,
+        "resume_rel_diff": rel, "tol_resume": TOL_RESUME,
+        "resume_bit_identical": all(
+            s2["losses"][e] == ref["losses"][e] for e in s2["losses"]),
+        "restored_tensors": len(s2["restored_digest"]),
+        "restored_equals_saved": s2["restored_digest"] == s1["digest"],
+        "stamped_param_norm": s2["stamped_param_norm"],
+        "restored_param_norm": s2["restored_param_norm"],
+        "step": s2["step"], "launches": s2["launches"],
+        "launches_per_step": per_step,
+        "checkpoint_bytes": ckpt_bytes, "checkpoint_steps_kept": steps,
+        "save_s": s1["save_s"] + s2["save_s"],
+        "restore_s": s2["restore_s"], "digest_s": s2["digest_s"],
+        "time_to_recover_s": s2["time_to_recover_s"],
+        # the same span in the runs that restore nothing
+        "time_to_first_step_s": {r: recs[r]["time_to_recover_s"]
+                                 for r in ELASTIC_ROLES},
+        "recovery_breakdown_s": {
+            r: {k: recs[r].get(k) for k in (
+                "import_s", "model_build_s", "boot_s", "setup_s",
+                "create_state_s", "restore_s", "digest_s", "first_step_s")}
+            for r in ELASTIC_ROLES},
+        "epoch_ms_per_step": {r: recs[r]["epoch_ms_per_step"]
+                              for r in ELASTIC_ROLES},
+        "trainer_step_ms": steady_ms, "train_step_ms": train["step_ms"],
+        "trainer_overhead": steady_ms / train["step_ms"],
+        "profiled_step": prof,
+        "device_idle_share_steady": (
+            1.0 - prof["device_ms"] / steady_ms
+            if prof.get("device_ms") else None),
+        "ddp": ddp, "card": smi,
+    }
+    emit(out)
+    for r in ELASTIC_ROLES:
+        vals = list(recs[r]["losses"].values())
+        check(all(math.isfinite(v) for v in vals),
+              "elastic %s loss not finite: %s" % (r, vals))
+    ref_losses = [ref["losses"][str(e)] for e in range(ELASTIC_EPOCHS)]
+    check(ref_losses[-1] < ref_losses[0],
+          "elastic loss did not fall: %s" % ref_losses)
+    check(bool(resumed) and "resumed at epoch %d" % ELASTIC_STAGE1_EPOCHS
+          in resumed[0], "stage 2 did not resume at epoch %d: %s"
+          % (ELASTIC_STAGE1_EPOCHS, logs["stage2"][-10:]))
+    check(sorted(s2["losses"]) == [str(e) for e in range(
+        ELASTIC_STAGE1_EPOCHS, ELASTIC_EPOCHS)],
+          "stage 2 trained epochs %s" % sorted(s2["losses"]))
+    check(out["restored_equals_saved"],
+          "stage 2's restored state differs from stage 1's saved state")
+    check(max(rel.values()) <= TOL_RESUME,
+          "resumed losses differ from the uninterrupted run: %s" % rel)
+    check(s2["step"] == ELASTIC_EPOCHS * ELASTIC_BATCHES,
+          "step %d after epoch %d" % (s2["step"], ELASTIC_EPOCHS))
+    layers = FLAGSHIP_TRAIN["num_layers"]
+    want = {k: layers for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    check(per_step == want,
+          "elastic launches per step %s != %s" % (per_step, want))
+    check(s2["stamped_param_norm"] is not None and abs(
+        s2["restored_param_norm"] - s2["stamped_param_norm"])
+          <= 1e-4 * s2["stamped_param_norm"],
+          "restored param norm %r vs stamped %r" % (
+              s2["restored_param_norm"], s2["stamped_param_norm"]))
+    check(ddp["max_rel_diff"] <= TOL_DDP,
+          "DDP over one NCCL rank changed the losses: %s" % ddp)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "edl_tpu_torch")):
         sys.stderr.write(
@@ -779,6 +1176,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke.py: CUDA is not available\n")
         return 3
+    if sys.argv[1:2] == ["--elastic-child"]:
+        elastic_child(torch, *sys.argv[2:5])
+        return 0
     dev = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
@@ -788,6 +1188,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train = phase_train(torch, dev["nvidia_smi"])
+    elastic = phase_elastic(torch, dev["nvidia_smi"], train)
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")
@@ -802,7 +1203,8 @@ def main() -> int:
         "replaces": "edl_tpu/ops/attention.py:163",
         "launches": train["launches"]["flash_fwd"],
         "launches_by_path": {"serve": serve["flash_launches"],
-                             "train": train["launches"]["flash_fwd"]},
+                             "train": train["launches"]["flash_fwd"],
+                             "elastic": elastic["launches"]["flash_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -822,6 +1224,8 @@ def main() -> int:
             "source": "edl_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": "edl_tpu/ops/attention.py:%d" % line_no,
             "launches": train["launches"][name],
+            "launches_by_path": {"train": train["launches"][name],
+                                 "elastic": elastic["launches"][name]},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),

@@ -1,0 +1,303 @@
+"""Flight recorder: crash-safe, append-only structured wide events.
+
+The metrics plane answers "how much"; the span tracer answers "how long"
+— but both live in process memory until an export tick, so the most
+interesting process of any elastic run (the one that just took a SIGKILL
+or a spot reclaim) leaves its last seconds behind only by luck. The
+flight recorder is the black box: every record is ONE ``os.write`` of
+one JSON line to an ``O_APPEND`` segment file under ``EDL_FLIGHT_DIR``,
+optionally ``fsync``'d (state transitions are; chatty step markers are
+not), so a process killed with ``SIGKILL`` mid-step still leaves every
+transition it ever recorded on disk, readable by
+``tools/edl_timeline.py`` and the chaos ``goodput_accounted`` invariant.
+
+Layout: ``{EDL_FLIGHT_DIR}/{component}-{pid}.{seq:04d}.flight.jsonl``,
+one file series per process. Segments rotate at ``EDL_FLIGHT_SEG_BYTES``
+(default 4 MiB) and at most ``EDL_FLIGHT_SEGS`` (default 8) are kept per
+process — a million-step job costs a bounded few tens of MB, never a
+full disk. A torn final line (the write the kill interrupted) is skipped
+by the reader; every complete line before it survives.
+
+Env contract:
+
+    EDL_FLIGHT_DIR        directory for segments; unset disables the
+                          recorder entirely (``record()`` is a cached
+                          None-check — production hot paths pay one
+                          attribute load, like the chaos plane).
+    EDL_FLIGHT_SEG_BYTES  rotate threshold per segment (default 4 MiB).
+    EDL_FLIGHT_SEGS       segments kept per process (default 8).
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import os
+import threading
+import time
+from typing import Dict, List, Optional
+
+from edl_tpu_torch.obs import trace as obs_trace
+from edl_tpu_torch.utils.log import get_logger
+
+logger = get_logger("obs.events")
+
+ENV_DIR = "EDL_FLIGHT_DIR"
+DEFAULT_SEG_BYTES = 4 << 20
+DEFAULT_SEGS = 8
+_SUFFIX = ".flight.jsonl"
+
+
+class FlightRecorder:
+    """Append-only JSONL event log for ONE process.
+
+    Thread-safe; every :meth:`record` is a single append ``write`` (plus
+    an ``fsync`` when asked), so no record can be half-lost to an
+    in-process buffer when the process dies — the only casualty of a
+    SIGKILL is the one line it interrupted, which the reader skips.
+
+    ``suffix`` lets other subsystems reuse the crash-safe ring-segment
+    design under their own file extension (the monitor plane retains its
+    scraped time series as ``*.series.jsonl`` this way) without their
+    records being swept up by flight-segment readers. ``stable_path``
+    goes one step further: the recorder writes to ONE named file and
+    never rotates — the run archive's ``runs/index.jsonl`` is an
+    append-forever history, so it reuses the write discipline (one
+    ``O_APPEND`` write per record, fsync'd, error-contained) without the
+    per-process ring naming.
+    """
+
+    def __init__(
+        self,
+        directory: str,
+        component: str = "proc",
+        pid: Optional[int] = None,
+        seg_bytes: Optional[int] = None,
+        max_segs: Optional[int] = None,
+        suffix: str = _SUFFIX,
+        stable_path: Optional[str] = None,
+    ) -> None:
+        self.directory = directory
+        self.component = component
+        self.suffix = suffix
+        self.pid = os.getpid() if pid is None else pid
+        if seg_bytes is None:
+            seg_bytes = int(
+                os.environ.get("EDL_FLIGHT_SEG_BYTES", DEFAULT_SEG_BYTES)
+            )
+        if max_segs is None:
+            max_segs = int(os.environ.get("EDL_FLIGHT_SEGS", DEFAULT_SEGS))
+        self._seg_bytes = max(4096, seg_bytes)
+        self._max_segs = max(1, max_segs)
+        self._stable_path = stable_path
+        if stable_path is not None:
+            # a stable-path recorder never rotates: the rotate threshold
+            # is pushed out of reach so the ring logic stays inert
+            self._seg_bytes = 1 << 62
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._fd: Optional[int] = None
+        self._written = 0
+
+    def _seg_path(self, seq: int) -> str:
+        if self._stable_path is not None:
+            return self._stable_path
+        return os.path.join(
+            self.directory,
+            "%s-%d.%04d%s" % (self.component, self.pid, seq, self.suffix),
+        )
+
+    def _open_segment(self) -> None:
+        os.makedirs(self.directory, exist_ok=True)
+        path = self._seg_path(self._seq)
+        heal = False
+        if self._stable_path is not None:
+            # a SHARED stable file outlives its writers: a previous
+            # writer killed mid-line leaves a torn tail with no newline,
+            # and a plain append would concatenate THIS writer's first
+            # record onto it — two records lost instead of one. Terminate
+            # the torn tail first; the reader skips the bad line.
+            try:
+                with open(path, "rb") as f:
+                    f.seek(-1, os.SEEK_END)
+                    heal = f.read(1) != b"\n"
+            except (OSError, ValueError):
+                heal = False  # absent or empty file needs no healing
+        self._fd = os.open(
+            path,
+            os.O_WRONLY | os.O_CREAT | os.O_APPEND,
+            0o644,
+        )
+        if heal:
+            os.write(self._fd, b"\n")
+        self._written = 0
+
+    def _rotate_locked(self) -> None:
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+        self._seq += 1
+        # ring semantics: drop the oldest segment beyond the keep budget
+        drop = self._seq - self._max_segs
+        if drop >= 0:
+            try:
+                os.unlink(self._seg_path(drop))
+            except OSError:
+                pass
+        self._open_segment()
+
+    def record(self, event: str, fsync: bool = False, **fields) -> None:
+        """Append one wide event; ``fsync=True`` for state transitions
+        (the records postmortems cannot afford to lose)."""
+        doc: Dict = {
+            "ts": time.time(),
+            "event": event,
+            "component": self.component,
+            "pid": self.pid,
+        }
+        if fields:
+            doc.update(fields)
+        # distributed tracing: black-box records carry the active trace
+        # id, so flights, spans, and goodput lanes of one operation
+        # (restage, drain) share one key edl-timeline can join on.
+        # Disarmed cost: one attribute load (fault-point discipline).
+        if obs_trace.PROPAGATION.armed and "trace_id" not in doc:
+            tid = obs_trace.current_trace_id()
+            if tid is not None:
+                doc["trace_id"] = tid
+        try:
+            line = (json.dumps(doc, default=str) + "\n").encode()
+        except (TypeError, ValueError):
+            return  # one unserializable field must not break the recorder
+        with self._lock:
+            try:
+                if self._fd is None:
+                    self._open_segment()
+                elif self._written >= self._seg_bytes:
+                    self._rotate_locked()
+                os.write(self._fd, line)
+                self._written += len(line)
+                if fsync:
+                    os.fsync(self._fd)
+            except OSError as exc:
+                # a full/unwritable disk must not take down the workload;
+                # drop the fd so a later record can retry a fresh open
+                logger.warning("flight record dropped: %s", exc)
+                if self._fd is not None:
+                    try:
+                        os.close(self._fd)
+                    except OSError:
+                        pass
+                    self._fd = None
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fd is not None:
+                try:
+                    os.fsync(self._fd)
+                    os.close(self._fd)
+                except OSError:
+                    pass
+                self._fd = None
+
+
+# -- per-process singleton ----------------------------------------------------
+
+_recorder: Optional[FlightRecorder] = None
+_checked = False
+_lock = threading.Lock()
+
+
+def get_recorder(component: Optional[str] = None) -> Optional[FlightRecorder]:
+    """The process flight recorder, or None when ``EDL_FLIGHT_DIR`` is
+    unset. The first caller names the process (same contract as
+    :func:`edl_tpu_torch.obs.trace.get_tracer`)."""
+    global _recorder, _checked
+    with _lock:
+        if _recorder is None and not _checked:
+            directory = os.environ.get(ENV_DIR, "").strip()
+            # cache-warming shadow stages inherit the job env but must
+            # not pollute the job's black box (same rule as the obs
+            # keyspace in train/context._mount_obs)
+            if os.environ.get("EDL_WARM_ONLY") == "1":
+                directory = ""
+            if directory:
+                from edl_tpu_torch.obs.trace import _default_component
+
+                _recorder = FlightRecorder(
+                    directory, component=component or _default_component()
+                )
+            _checked = True
+        elif (
+            _recorder is not None
+            and component
+            and _recorder.component == "proc"
+        ):
+            _recorder.component = component
+        return _recorder
+
+
+def record(event: str, fsync: bool = False, **fields) -> None:
+    """Record into the process flight recorder; no-op when disabled."""
+    rec = _recorder if _checked else get_recorder()
+    if rec is not None:
+        rec.record(event, fsync=fsync, **fields)
+
+
+def reset() -> None:
+    """Forget the singleton so the env is re-read (tests)."""
+    global _recorder, _checked
+    with _lock:
+        if _recorder is not None:
+            _recorder.close()
+        _recorder = None
+        _checked = False
+
+
+# -- reading back -------------------------------------------------------------
+
+
+def _parse_lines(data: bytes, require_ts: bool = True) -> List[Dict]:
+    """The torn-tail parse discipline shared by every JSONL reader of
+    this module: blank, unparseable (torn tail) and non-dict lines are
+    skipped, never fatal."""
+    docs: List[Dict] = []
+    for raw in data.split(b"\n"):
+        if not raw.strip():
+            continue
+        try:
+            doc = json.loads(raw)
+        except ValueError:
+            continue  # torn tail line
+        if isinstance(doc, dict) and (not require_ts or "ts" in doc):
+            docs.append(doc)
+    return docs
+
+
+def read_segments(directory: str, suffix: str = _SUFFIX) -> List[Dict]:
+    """Parse every flight segment under ``directory`` into one
+    ts-ordered event list. Torn lines (the write a kill interrupted) and
+    unparseable lines are skipped — a dead process's segments must never
+    hide a live process's records."""
+    events: List[Dict] = []
+    for path in sorted(glob.glob(os.path.join(directory, "*" + suffix))):
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except OSError:
+            continue
+        events.extend(_parse_lines(data))
+    events.sort(key=lambda e: e.get("ts", 0.0))
+    return events
+
+
+def read_records(path: str) -> List[Dict]:
+    """Parse ONE append-only JSONL file with the torn-tail discipline,
+    keeping file order (the run-archive index is append-ordered history,
+    not a ts-sorted merge)."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return []
+    return _parse_lines(data, require_ts=False)

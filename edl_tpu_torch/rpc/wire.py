@@ -268,6 +268,28 @@ def read_frame_blocking(sock) -> dict:
     return unpack_payload(body)
 
 
+
+def request_once(endpoint: str, payload: dict, timeout: float = 1.0) -> dict:
+    """One-shot request/response on a fresh blocking connection.
+
+    Dial, send one frame, read one frame, close. Control-plane probes
+    (standby promotion checks, epoch fence campaigns) use this so they
+    never entangle with a long-lived client's connection state. Raises
+    ``OSError``/``WireError`` on any failure — callers treat the peer as
+    unreachable."""
+    import socket as _socket
+
+    from edl_tpu_torch.utils.net import split_endpoint
+
+    if _TC.armed and TC_FIELD not in payload:
+        tc = _obs_trace.inject()
+        if tc is not None:
+            payload = dict(payload, tc=tc)
+    with _socket.create_connection(split_endpoint(endpoint), timeout=timeout) as sock:
+        sock.settimeout(timeout)
+        sock.sendall(pack_frame(payload))
+        return read_frame_blocking(sock)
+
 def _recv_exact(sock, n: int) -> bytes:
     buf = bytearray(n)
     _recv_exact_into(sock, memoryview(buf))

@@ -1,8 +1,18 @@
-"""Training: the port of ``edl_tpu.train``'s step builders and schedules.
+"""Training: the port of ``edl_tpu.train``: the step builders, the
+schedules and the stop-resume elastic plane (``init``, ``worker_barrier``,
+``ElasticTrainer``, and the checkpoint's ``AdjustRegistry``).
 
-The elastic plane (``context.init``, ``ElasticTrainer``, the AUC metrics
-and DGC compression) comes with later slices (ROADMAP M5-M9, M17).
+The AUC metrics and DGC compression come with ROADMAP M17.
 """
+
+from edl_tpu_torch.checkpoint.adjust import AdjustRegistry, linear_scaled_lr
+from edl_tpu_torch.train.context import (
+    current_env,
+    init,
+    warm_only,
+    worker_barrier,
+)
+from edl_tpu_torch.train.loop import ElasticTrainer
 
 from edl_tpu_torch.train.optim import adam, adamw, sgd
 from edl_tpu_torch.train.schedules import (
@@ -24,6 +34,13 @@ from edl_tpu_torch.train.step import (
 )
 
 __all__ = [
+    "init",
+    "current_env",
+    "warm_only",
+    "worker_barrier",
+    "ElasticTrainer",
+    "AdjustRegistry",
+    "linear_scaled_lr",
     "piecewise_decay",
     "warmup_cosine",
     "scaled_schedule_factory",
