@@ -112,6 +112,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              audited by the port's ``chaos/invariants.py`` (completed,
              shards exactly once, resumed past the fault, numerics
              continuous, goodput accounted).
+10. resnet - ResNet50_vd, the JAX package's flagship collective-training
+             model: (a) one train step at [8, 64, 64, 3] on the card
+             (bf16) against the port's CPU step in fp32 from the same
+             seeded weights: logits, loss, running averages, and the
+             parameters' updates against what bf16 alone moves them by
+             (the same step on the CPU in bf16); (b) the headline bench's
+             ``measure()`` (``tools/bench.py``) at batch 256, 224x224,
+             pipeline input: img/s, step ms, host enqueue against device
+             ms, MFU, peak memory, one profiled step's device time by
+             class, the idle share; (c) the port's
+             ``examples/resnet_collective.py`` under the port's store and
+             launcher, cold, phase elastic's schedule (1 -> 2 -> 1, two
+             ranks on the one card over gloo) at 64 images a worker,
+             3 steps an epoch, 4 epochs: every restore equals bit for bit
+             the digest taken at save (parameters, BN buffers, momentum),
+             the world-2 ranks' BN buffers agree after every step, each
+             step's global loss agrees with a world-1 run of the schedule
+             on the concatenated batches in this process, and the time to
+             recover. No kernel of K1-K3 lies on this path.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -121,7 +140,8 @@ prints no result. Imports nothing of JAX or of the JAX package.
 ``python3 chip_smoke.py --elastic-child OUT`` and
 ``python3 chip_smoke.py --elastic-launched OUT_DIR`` are phase elastic's
 worker processes (the reference, and the worker the launcher spawns),
-started by the phase itself.
+``python3 chip_smoke.py --resnet-launched OUT_DIR -- ARGS`` phase
+resnet's, all started by the phases themselves.
 """
 
 import concurrent.futures
@@ -243,6 +263,33 @@ TOL_HALVES = 2e-2
 # the memory plan published after the first step against
 # max_memory_allocated over that step: relative
 TOL_PLAN = 2e-2
+# phase resnet. (a) one train step of ResNet50_vd at RESNET_CHECK_SHAPE,
+# the card (bf16 compute) against the CPU (fp32) from the same weights:
+# the logits over max(1, max|cpu|) (bf16 rounds every conv output and
+# normalised activation, an ulp is 2^-8 relative, through 50 layers); the
+# loss relative; the running averages over max(1, max|cpu|) (fp32
+# statistics of those bf16 activations). The parameters' updates, relative
+# L2, all as one vector and the worst tensor: bf16 alone moves them by
+# 0.15 / 0.23 on the card (the backward's BNs subtract batch means from
+# bf16 gradients), so they are held to the same step on the CPU in bf16
+# against fp32: at most TOL_RN_UPDATE_RATIO times its error plus
+# TOL_RN_UPDATE
+RESNET_CHECK_SHAPE = (8, 64, 64, 3)
+TOL_RN_LOGITS = 5e-2
+TOL_RN_LOSS = 1e-2
+TOL_RN_STATS = 2e-2
+TOL_RN_UPDATE_RATIO = 1.5
+TOL_RN_UPDATE = 2e-2
+# (b) the headline bench's measure() at its defaults on the card
+RESNET_BENCH_ENV = {"EDL_BENCH_BATCH": "256", "EDL_BENCH_INPUT": "pipeline",
+                    "EDL_BENCH_STEPS": "30", "EDL_BENCH_WARMUP": "8"}
+# (c) the port's example under the port's launcher, phase elastic's
+# schedule (ELASTIC_* above) at 64 images of 224x224 a worker; each step's
+# global loss against a world-1 run of the schedule on the concatenated
+# batches: relative (bf16 over other batch splits, the world-2 statistics
+# as E[x^2] - E[x]^2 over an all-reduce, carried through 12 SGD steps)
+RESNET_JOB_BATCH = 64
+TOL_RN_JOB = 1e-2
 
 
 def emit(obj) -> None:
@@ -1237,8 +1284,9 @@ def elastic_env(role: str, base=None) -> dict:
 
 def state_digest(torch, state) -> dict:
     """sha256 of every tensor a checkpoint of ``state`` holds, by name:
-    the parameters, the optimizer's state (AdamW's moments and step
-    counts), the train step and the optimizer's update count."""
+    the parameters and buffers (batch-norm running averages), the
+    optimizer's state (AdamW's moments and step counts, SGD's momentum),
+    the train step and the optimizer's update count."""
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     model_sd, optim_sd = get_state_dict(state.apply_fn,
@@ -2540,6 +2588,402 @@ def phase_trainee(torch, smi: str, device: str = "cuda") -> dict:
     return res
 
 
+def _rel_err(got, want) -> float:
+    """max|got - want| over max(1, max|want|)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / max(1.0, float(want.abs().max())))
+
+
+def _resnet_step(torch, device, dtype, weights, batch):
+    """One ``make_train_step`` step of ResNet50_vd (SGD 0.1, momentum 0.9,
+    ``{"train": True}``) from ``weights``: the logits, the loss and the
+    state dict after the step, on the CPU."""
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.train import create_state, cross_entropy_loss
+    from edl_tpu_torch.train import make_train_step, sgd
+
+    model = ResNet50_vd(num_classes=1000, dtype=dtype)
+    model.load_state_dict(weights)
+    state = create_state(model, None, sgd(0.1, momentum=0.9), device=device)
+    seen = []
+
+    def head(logits, y):
+        seen.append(logits.detach())
+        return cross_entropy_loss(logits, y)
+
+    step = make_train_step(head, {"train": True})
+    x, y = (t.to(device) for t in batch)
+    state, m = step(state, (x, y))
+    return {"logits": seen[0].cpu(), "loss": m["loss"].cpu(),
+            "state": {k: v.detach().cpu()
+                      for k, v in state.apply_fn.state_dict().items()}}
+
+
+def _resnet_card_vs_cpu(torch) -> dict:
+    """(a) One train step of ResNet50_vd at RESNET_CHECK_SHAPE on the card
+    (bf16 compute) against the port's CPU step in fp32 from the same
+    seeded weights: logits, loss, the running averages and the
+    parameters' updates. The same step on the CPU in bf16 is the
+    yardstick of the updates: what bf16 alone moves them by."""
+    import numpy as np
+
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+
+    model = ResNet50_vd(num_classes=1000, dtype=torch.float32)
+    model.init_weights(torch.Generator().manual_seed(0))
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    del model
+    n, size = RESNET_CHECK_SHAPE[0], RESNET_CHECK_SHAPE[1]
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        RESNET_CHECK_SHAPE).astype(np.float32))
+    y = torch.from_numpy(np.random.RandomState(1).randint(0, 1000, n))
+    t0 = time.monotonic()
+    card = _resnet_step(torch, "cuda", torch.bfloat16, weights, (x, y))
+    cpu = _resnet_step(torch, "cpu", torch.float32, weights, (x, y))
+    cpu16 = _resnet_step(torch, "cpu", torch.bfloat16, weights, (x, y))
+    stats = [k for k in weights if k.endswith((".mean", ".var"))]
+    params = [k for k in weights if k not in stats]
+    want = {k: cpu["state"][k] - weights[k] for k in params}
+
+    def update_err(run):
+        """Each parameter's update against the fp32 CPU step's (relative
+        L2), the worst, and all updates as one vector."""
+        errs = {k: float((run["state"][k] - weights[k] - want[k]).norm()
+                         / want[k].norm().clamp(min=1e-30)) for k in params}
+        got = torch.cat([(run["state"][k] - weights[k]).reshape(-1)
+                         for k in params])
+        ref = torch.cat([want[k].reshape(-1) for k in params])
+        worst = max(errs, key=errs.get)
+        return {"global": float((got - ref).norm() / ref.norm()),
+                "worst": errs[worst], "worst_name": worst}
+
+    upd, upd16 = update_err(card), update_err(cpu16)
+    stats_err = {k: _rel_err(card["state"][k], cpu["state"][k])
+                 for k in stats}
+    worst_stat = max(stats_err, key=stats_err.get)
+    bound = {k: TOL_RN_UPDATE_RATIO * upd16[k] + TOL_RN_UPDATE
+             for k in ("global", "worst")}
+    res = {
+        "shape": list(RESNET_CHECK_SHAPE), "image": size,
+        "logits_err": _rel_err(card["logits"], cpu["logits"]),
+        "logits_err_cpu_bf16": _rel_err(cpu16["logits"], cpu["logits"]),
+        "loss_card": float(card["loss"]), "loss_cpu": float(cpu["loss"]),
+        "loss_rel_err": abs(float(card["loss"]) - float(cpu["loss"]))
+        / abs(float(cpu["loss"])),
+        "stats_err": stats_err[worst_stat], "stats_worst": worst_stat,
+        "update": upd, "update_cpu_bf16": upd16, "update_bound": bound,
+        "tolerances": {"logits": TOL_RN_LOGITS, "loss": TOL_RN_LOSS,
+                       "stats": TOL_RN_STATS,
+                       "update": "%g x cpu bf16 + %g" % (
+                           TOL_RN_UPDATE_RATIO, TOL_RN_UPDATE)},
+        "seconds": time.monotonic() - t0,
+    }
+    emit({"phase": "resnet_check", **res})
+    check(res["logits_err"] <= TOL_RN_LOGITS,
+          "resnet card vs cpu: logits %.3g" % res["logits_err"])
+    check(res["loss_rel_err"] <= TOL_RN_LOSS,
+          "resnet card vs cpu: loss %.3g" % res["loss_rel_err"])
+    check(res["stats_err"] <= TOL_RN_STATS,
+          "resnet card vs cpu: running averages %.3g (%s)"
+          % (res["stats_err"], worst_stat))
+    for k in ("global", "worst"):
+        check(upd[k] <= bound[k], "resnet card vs cpu: update %s %.3g > %.3g"
+              % (k, upd[k], bound[k]))
+    return res
+
+
+def _buffers_digest(torch, module) -> str:
+    """sha256 of every batch-norm buffer of ``module``, in name order."""
+    h = hashlib.sha256()
+    for name, buf in sorted(module.named_buffers()):
+        h.update(buf.detach().contiguous().cpu().reshape(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def resnet_launched(torch, out_dir: str) -> None:
+    """The worker the port's launcher spawns in phase resnet
+    (``python3 chip_smoke.py --resnet-launched OUT_DIR -- ARGS``): the
+    port's ``examples/resnet_collective.py`` ``main(ARGS)``, observed.
+    Every save and restore is digested (parameters, buffers, the
+    optimizer's momentum); every step's loss and batch-norm buffers'
+    digest are recorded; the first stage to reach epoch
+    ``ELASTIC_JOIN_EPOCH`` or ``ELASTIC_KILL_EPOCH`` holds at its start
+    until the drain token moves. Writes ``rec.<pid>.json`` at every save
+    and at the end."""
+    from edl_tpu_torch.chaos import drill
+    from edl_tpu_torch.checkpoint import manager
+    from edl_tpu_torch.examples import resnet_collective as job
+    from edl_tpu_torch.train import context
+
+    spawn_ts = float(os.environ["EDL_SPAWN_TS"])
+    env0 = context.current_env()
+    rec = {"pid": os.getpid(), "spawn_ts": spawn_ts,
+           "import_s": time.time() - spawn_ts, "rank": env0.global_rank,
+           "stage": env0.stage, "world": env0.world_size, "restages": [],
+           "steps": [], "first_step_end_ts": None}
+    _digesting_restore(torch, rec)
+    _digesting_save(torch, out_dir)
+    cur = {"epoch": None}
+    records = job.records
+
+    def held(epoch, rank, count, size):
+        if epoch in (ELASTIC_JOIN_EPOCH, ELASTIC_KILL_EPOCH):
+            drill.hold_at_epoch(out_dir, epoch, ELASTIC_SETTLE_S)
+        yield from records(epoch, rank, count, size)
+
+    def holding_records(epoch, rank, count, size):
+        cur["epoch"] = epoch
+        return held(epoch, rank, count, size)
+
+    job.records = holding_records
+    make = job.make_train_step
+
+    def observed_make(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step(state, batch):
+            state, m = inner(state, batch)
+            loss = float(m["loss"])  # synchronises
+            if rec["first_step_end_ts"] is None:
+                rec["first_step_end_ts"] = time.time()
+            rec["steps"].append({
+                "epoch": cur["epoch"], "step": int(state.step), "loss": loss,
+                "t": time.time(),
+                "buffers": _buffers_digest(torch, state.apply_fn)})
+            return state, m
+
+        return step
+
+    job.make_train_step = observed_make
+    save = manager.CheckpointManager.save
+
+    def recording_save(self, state, status, step=None):
+        import torch.distributed as dist
+
+        saved = save(self, state, status, step)
+        _write_json(os.path.join(out_dir, "rec.%d.json" % os.getpid()), rec)
+        if dist.is_initialized():
+            # every rank's record is written before rank 0 reaches the
+            # next epoch's hold (after which the phase may kill a rank)
+            dist.barrier()
+        return saved
+
+    manager.CheckpointManager.save = recording_save
+    args = sys.argv[sys.argv.index("--") + 1:]
+    try:
+        job.main(args)
+    finally:
+        _write_json(os.path.join(out_dir, "rec.%d.json" % os.getpid()), rec)
+
+
+def _resnet_reference(torch) -> dict:
+    """The elastic job's schedule in this process at world 1: the same
+    seeded ResNet50_vd and records, each world-2 epoch on the two ranks'
+    batches concatenated, at the learning rate each stage sets
+    (``linear_scaled_lr(0.1, 1)``: doubled at world 2). Each step's
+    loss."""
+    import numpy as np
+
+    from edl_tpu_torch.data import batched
+    from edl_tpu_torch.examples import resnet_collective as job
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.train import create_state, make_cross_entropy_loss
+    from edl_tpu_torch.train import make_train_step, sgd
+
+    state = create_state(ResNet50_vd(num_classes=1000), 0,
+                         sgd(0.1, momentum=0.9, nesterov=True), device="cuda")
+    step = make_train_step(make_cross_entropy_loss(5), {"train": True})
+    losses = []
+    b = RESNET_JOB_BATCH
+    for epoch in range(ELASTIC_EPOCHS):
+        world = 2 if ELASTIC_JOIN_EPOCH <= epoch < ELASTIC_KILL_EPOCH else 1
+        for group in state.opt_state.optimizer.param_groups:
+            group["lr"] = 0.1 * world
+        ranks = [list(batched(job.records(epoch, r, ELASTIC_BATCHES * b, 224),
+                              b, drop_remainder=True)) for r in range(world)]
+        for i in range(ELASTIC_BATCHES):
+            x = np.concatenate([ranks[r][i][0][0] for r in range(world)])
+            y = np.concatenate([ranks[r][i][0][1] for r in range(world)])
+            state, m = step(state, (torch.from_numpy(x).cuda(),
+                                    torch.from_numpy(y).cuda()))
+            losses.append({"epoch": epoch, "world": world,
+                           "loss": float(m["loss"])})
+    del state
+    torch.cuda.empty_cache()
+    return {"losses": losses}
+
+
+def _resnet_job(work: str) -> dict:
+    """(c) The port's example on the port's store and launcher, cold: one
+    pod; at epoch ELASTIC_JOIN_EPOCH a second joins (two ranks on the one
+    card, gloo); at ELASTIC_KILL_EPOCH the joiner is SIGKILLed."""
+    cp = _ControlPlane(work, "chip-smoke-resnet", False)
+    script = [os.path.abspath(__file__), "--resnet-launched", cp.out, "--",
+              "--epochs", str(ELASTIC_EPOCHS),
+              "--steps_per_epoch", str(ELASTIC_BATCHES),
+              "--batch_per_worker", str(RESNET_JOB_BATCH)]
+    res = {"job": cp.job, "store": cp.store_line}
+    try:
+        first = cp.pod(script)
+        _wait(lambda: cp.reached(ELASTIC_JOIN_EPOCH),
+              "resnet: epoch %d" % ELASTIC_JOIN_EPOCH, [first])
+        joiner = cp.pod(script)
+        _wait(lambda: cp.reached(ELASTIC_KILL_EPOCH),
+              "resnet: epoch %d at world 2" % ELASTIC_KILL_EPOCH,
+              [first, joiner])
+        os.kill(joiner.pid, 9)  # a dead machine: its lease must expire
+        joiner.wait(timeout=60)
+        res["launcher_rc"] = first.wait(timeout=ELASTIC_WAIT_S)
+        items = cp.items()
+        res["job_status"] = (items.get("/%s/job/status" % cp.job)
+                             or (b"",))[0].decode()
+        res["bump_ts"] = {}
+        for key, (value, _lease) in items.items():
+            found = re.match(r"/%s/events/([0-9a-f]+)/drain\." % cp.job, key)
+            if found:
+                res["bump_ts"][found.group(1)] = float(value)
+        res["records"] = cp.records()
+        res["versions"] = cp.versions()
+        res["saved_digests"] = {}
+        for name in os.listdir(cp.out):
+            if name.startswith("digest."):
+                with open(os.path.join(cp.out, name)) as fh:
+                    res["saved_digests"][int(name.split(".")[1])] = \
+                        json.load(fh)
+        last = os.path.join(cp.ckpt, str(res["versions"][-1]))
+        res["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(d, f))
+            for d, _, files in os.walk(last) for f in files)
+    except BaseException:
+        for name in sorted(os.listdir(cp.logs)):
+            sys.stderr.write("--- %s\n%s" % (
+                name, _tail(os.path.join(cp.logs, name))))
+        raise
+    finally:
+        cp.close()
+    return res
+
+
+def phase_resnet(torch, smi: str) -> dict:
+    """ResNet50_vd, the JAX package's flagship collective-training model:
+    (a) the card's step against the CPU's, (b) the headline bench's
+    ``measure()``, (c) the port's example elastic 1 -> 2 -> 1 on the
+    port's control plane against a world-1 run of the same schedule (see
+    the module docstring)."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.tools import bench
+
+    t0 = time.monotonic()
+    check_ab = _resnet_card_vs_cpu(torch)
+    torch.cuda.empty_cache()
+    saved = {k: os.environ.get(k) for k in RESNET_BENCH_ENV}
+    benchmark = torch.backends.cudnn.benchmark
+    os.environ.update(RESNET_BENCH_ENV)
+    try:
+        rec = bench.measure("cuda")
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    rec = {"phase": "resnet_bench", **rec, "card": smi}
+    emit(rec)
+    check(rec["metric"] == bench.METRIC and rec["value"] > 0
+          and math.isfinite(rec["loss"]), "resnet bench: %s" % rec["metric"])
+    check(rec.get("device_ms") is not None, "resnet bench: no device time")
+
+    ref = _resnet_reference(torch)
+    work = tempfile.mkdtemp(prefix="edl-resnet-")
+    try:
+        job = _resnet_job(os.path.join(work, "job"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    stages = _stage_order(job)
+    recs = job["records"]
+    restorers = [r for r in recs if r.get("restored_step") is not None]
+    bit_for_bit = [r["restored_digest"]
+                   == job["saved_digests"].get(r["restored_step"])
+                   for r in restorers]
+    recover = [{
+        "stage": stages.index(r["stage"]) + 1, "world": r["world"],
+        "rank": r["rank"], "restored_step": r["restored_step"],
+        "spawn_to_first_step_s": (r["first_step_end_ts"] - r["spawn_ts"]
+                                  - r["digest_s"]),
+        "bump_to_first_step_s": (r["first_step_end_ts"]
+                                 - job["bump_ts"][r["stage"]] - r["digest_s"]),
+        "restore_s": r["restore_s"], "import_s": r["import_s"]}
+        for r in restorers]
+    # the job's global loss per step: the mean of its ranks' losses
+    by_step = {}
+    bufs = {}
+    for r in recs:
+        for s in r["steps"]:
+            by_step.setdefault(s["step"], []).append(s["loss"])
+            if r["world"] == 2:
+                bufs.setdefault(s["step"], set()).add(s["buffers"])
+    job_losses = [sum(v) / len(v) for _k, v in sorted(by_step.items())]
+    # rank 0's step time (the loss fetched each step) between steps of
+    # one epoch, by world
+    step_s = {}
+    for r in recs:
+        if r["rank"] == 0:
+            steps = r["steps"]
+            step_s.setdefault(r["world"], []).extend(
+                b["t"] - a["t"] for a, b in zip(steps, steps[1:])
+                if a["epoch"] == b["epoch"])
+    ref_losses = [r["loss"] for r in ref["losses"]]
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(job_losses, ref_losses)]
+    out = {
+        "phase": "resnet", "model": "ResNet50_vd", "card": smi,
+        "check": {k: check_ab[k] for k in ("logits_err", "loss_rel_err",
+                                           "stats_err", "update",
+                                           "update_cpu_bf16")},
+        "bench": {k: rec.get(k) for k in (
+            "value", "vs_baseline", "step_ms", "host_enqueue_ms",
+            "device_ms", "device_idle_share", "mfu", "step_tflops",
+            "peak_memory_bytes", "device_ms_by_class", "power_limit_w")},
+        "job": {
+            "per_worker_batch": RESNET_JOB_BATCH, "image": 224,
+            "epochs": ELASTIC_EPOCHS, "steps_per_epoch": ELASTIC_BATCHES,
+            "worlds": [r["world"] for r in ref["losses"]],
+            "launcher_rc": job["launcher_rc"],
+            "job_status": job["job_status"], "versions": job["versions"],
+            "checkpoint_bytes": job["checkpoint_bytes"],
+            "restores_bit_for_bit": bit_for_bit,
+            "world2_steps": len(bufs),
+            "world2_buffer_divergence": sum(len(v) - 1 for v in bufs.values()),
+            "step_s_by_world": step_s,
+            "losses": job_losses, "reference_losses": ref_losses,
+            "loss_rel_err": loss_err, "tol_loss": TOL_RN_JOB,
+            "time_to_recover": recover,
+        },
+        "seconds": time.monotonic() - t0,
+    }
+    emit(out)
+    n = ELASTIC_EPOCHS * ELASTIC_BATCHES
+    check(job["launcher_rc"] == 0 and job["job_status"] == "COMPLETE",
+          "resnet job: launcher %s, status %r"
+          % (job["launcher_rc"], job["job_status"]))
+    check(len(restorers) == 3 and all(bit_for_bit),
+          "resnet job: restores bit for bit %s" % bit_for_bit)
+    check(len(job_losses) == n and len(ref_losses) == n,
+          "resnet job: %d steps, reference %d" % (len(job_losses),
+                                                   len(ref_losses)))
+    check(len(bufs) == ELASTIC_BATCHES
+          and all(len(v) == 1 for v in bufs.values()),
+          "resnet job: world-2 buffers diverge %s" % bufs)
+    check(max(loss_err) <= TOL_RN_JOB,
+          "resnet job: losses against the world-1 run %s" % loss_err)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "edl_tpu_torch")):
         sys.stderr.write(
@@ -2559,6 +3003,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--elastic-launched"]:
         launched_child(torch, sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--resnet-launched"]:
+        resnet_launched(torch, sys.argv[2])
+        return 0
     dev = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
@@ -2571,6 +3018,7 @@ def main() -> int:
     elastic = phase_elastic(torch, dev["nvidia_smi"], train)
     tiers = phase_tiers(torch, dev["nvidia_smi"])
     phase_trainee(torch, dev["nvidia_smi"])
+    phase_resnet(torch, dev["nvidia_smi"])
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")

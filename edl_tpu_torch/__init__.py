@@ -17,9 +17,17 @@ other. The paths ported so far:
   data parallelism, ``data.prefetch_to_device``) -> per-epoch
   ``checkpoint.CheckpointManager`` saves, restored at the next world size
   by a respawned worker or, hot, by the same process; a preemption
-  notice drains it through an emergency save.
+  notice drains it through an emergency save;
+- training ResNet50_vd, the flagship collective-training model:
+  ``tools.bench`` (the headline img/s) and
+  ``examples.resnet_collective`` (the elastic job) ->
+  ``train.step.make_train_step`` -> ``models.resnet`` (stage-wide batch
+  norm over the stage's process group).
 
-Attention runs on the hand-written CUDA flash kernels of ``ops/csrc``.
+Attention runs on the hand-written CUDA flash kernels of ``ops/csrc``;
+the ResNet path's convolutions, pools and batch norm are cuDNN's and
+PyTorch's own kernels (they are XLA ops, not Pallas kernels, in the JAX
+package).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; without CUDA they raise (:func:`utils.device.resolve_device`).

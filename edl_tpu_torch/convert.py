@@ -1,9 +1,16 @@
-"""Flax params <-> PyTorch ``state_dict``, 1:1.
+"""Flax variables <-> PyTorch ``state_dict``: a rename plus conv layouts.
 
-The port's modules carry the flax names and shapes
-(:mod:`edl_tpu_torch.models.transformer`), so the conversion is a rename:
-the param path ``layer_0/attn/q/kernel`` becomes the key
-``layer_0.attn.q.kernel``, same shape. For ``TransformerLM``:
+The port's modules carry the flax names
+(:mod:`edl_tpu_torch.models.transformer`, :mod:`~edl_tpu_torch.models.resnet`,
+:mod:`~edl_tpu_torch.models.mlp`), so the param path
+``layer_0/attn/q/kernel`` becomes the key ``layer_0.attn.q.kernel``. The
+conversion is no longer a pure rename: a conv kernel (a 4-D ``kernel``)
+is flax's HWIO ``[kh, kw, in/groups, out]`` and torch's OIHW ``[out,
+in/groups, kh, kw]``, so it is transposed on the way in and back. Every
+other leaf keeps its shape (a Dense kernel stays ``[d_in, d_out]``). A
+batch-norm model's ``batch_stats`` collection (``.../BatchNorm_0/mean``,
+``var``) maps to the module's buffers of the same names, beside its
+``scale``/``bias`` parameters. For ``TransformerLM``:
 
     embed/embedding            [V, d]
     layer_i/{ln1,ln2}/scale    [d]
@@ -13,11 +20,14 @@ the param path ``layer_0/attn/q/kernel`` becomes the key
     ln_f/scale                 [d]
     lm_head/kernel             [d, V]
 
-A tree is a nested dict of numpy arrays (``state.params``, or the
-``{"params": ...}`` dict ``Module.init`` returns), or an ``.npz`` whose
-keys are the ``/``-joined paths (:func:`save_npz` writes one). Loading
-casts each array to its parameter's dtype (fp32 masters for training);
-:func:`to_flax` goes back, ``state_dict`` -> nested dict of numpy arrays.
+A tree is a nested dict of numpy arrays (``state.params``, the
+``{"params": ...}`` dict ``Module.init`` returns, or ``{"params": ...,
+"batch_stats": ...}``), or an ``.npz`` whose keys are the ``/``-joined
+paths (:func:`save_npz` writes one). Loading casts each array to its
+parameter's dtype (fp32 masters for training) and copies it into the
+parameter as it is laid out (channels-last conv kernels stay so);
+:func:`to_flax` goes back, ``state_dict`` -> nested dict of numpy arrays,
+and the round trip is exact.
 """
 
 from __future__ import annotations
@@ -28,10 +38,22 @@ import numpy as np
 import torch
 
 
+STATS = ("mean", "var")  # batch_stats leaves: module buffers in the port
+
+
+def _is_conv_kernel(path: str, arr) -> bool:
+    return path.rsplit("/", 1)[-1].rsplit(".", 1)[-1] == "kernel" \
+        and len(arr.shape) == 4
+
+
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict -> ``{"a/b/c": array}``; unwraps a lone ``params`` key."""
-    if not prefix and set(tree) == {"params"}:
-        tree = tree["params"]
+    """Nested dict -> ``{"a/b/c": array}``; a variables dict
+    (``params`` and optionally ``batch_stats``) is merged into one tree."""
+    if not prefix and "params" in tree and set(tree) <= {"params",
+                                                          "batch_stats"}:
+        out = flatten(tree["params"])
+        out.update(flatten(tree.get("batch_stats", {})))
+        return out
     out: Dict[str, np.ndarray] = {}
     for key, val in tree.items():
         path = "%s/%s" % (prefix, key) if prefix else str(key)
@@ -48,24 +70,33 @@ def to_state_dict(params) -> Dict[str, torch.Tensor]:
     flat = params if all(
         not isinstance(v, Mapping) for v in params.values()
     ) else flatten(params)
-    return {
-        path.replace("/", "."): torch.from_numpy(np.array(arr, copy=True))
-        for path, arr in flat.items()
-    }
+    out = {}
+    for path, arr in flat.items():
+        arr = np.array(arr, copy=True)
+        if _is_conv_kernel(path, arr):
+            arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))  # OIHW
+        out[path.replace("/", ".")] = torch.from_numpy(arr)
+    return out
 
 
 def to_flax(state_dict) -> Dict:
-    """``state_dict`` (or ``named_parameters``) -> the flax param tree as
-    a nested dict of numpy arrays (bf16 tensors become fp32 arrays)."""
-    tree: Dict = {}
+    """``state_dict`` (or ``named_parameters``) -> the flax tree as a
+    nested dict of numpy arrays (bf16 tensors become fp32 arrays, conv
+    kernels HWIO): the params tree, or ``{"params": ..., "batch_stats":
+    ...}`` when the state holds batch-norm buffers."""
+    params: Dict = {}
+    stats: Dict = {}
     for key, tensor in dict(state_dict).items():
-        node = tree
         *parents, leaf = key.split(".")
+        node = stats if leaf in STATS else params
         for part in parents:
             node = node.setdefault(part, {})
         t = tensor.detach().cpu()
-        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return tree
+        arr = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        if _is_conv_kernel(key, arr):
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # HWIO
+        node[leaf] = arr
+    return {"params": params, "batch_stats": stats} if stats else params
 
 
 def save_npz(params, path: str) -> None:

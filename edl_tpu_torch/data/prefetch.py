@@ -120,6 +120,10 @@ def prefetch_to_device(
         raise ValueError("depth must be >= 1")
     dev = sharding.device if sharding is not None else resolve_device(device)
     on_card = dev.type == "cuda"
+    if on_card and dev.index is None:
+        # "cuda" names the current card; the feeder thread selects it by
+        # index
+        dev = torch.device("cuda", torch.cuda.current_device())
     copy_stream = torch.cuda.Stream(dev) if on_card else None
     q: queue.Queue = queue.Queue(maxsize=depth)
     err: collections.deque = collections.deque(maxlen=1)

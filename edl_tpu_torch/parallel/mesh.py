@@ -15,12 +15,16 @@ that is the same on every rank (parameters), :func:`device_put_local_rows`
 and :func:`shard_batch` take this rank's rows of the batch (the global
 batch is the ranks' rows concatenated in rank order).
 
-Only ``dp`` is served. ``fsdp`` (and :func:`shard_params_fsdp`) waits for
-ROADMAP item 5 (M5, FSDP2); ``tp``/``sp``/``ep`` for ROADMAP M12/M14/M15.
+Only ``dp`` is served, beside axes of size 1. An ``fsdp`` axis of size 1
+is the flagship ResNet job's mesh (``{"dp": -1, "fsdp": 1}``), where
+:func:`shard_params_fsdp` places everything whole, as the JAX function
+does there; an ``fsdp`` axis larger than 1 waits for ROADMAP item 5 (M5,
+FSDP2); ``tp``/``sp``/``ep`` for ROADMAP M12/M14/M15.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 from typing import Dict, Optional
 
@@ -46,11 +50,13 @@ def _fsdp_not_ported():
 
 
 class Mesh:
-    """One ``dp`` axis over the stage's ranks; ``device`` is this rank's."""
+    """One ``dp`` axis over the stage's ranks, and the axes of size 1 the
+    caller named (``ones``); ``device`` is this rank's."""
 
-    def __init__(self, size: int, rank: int, device: torch.device) -> None:
-        self.shape = {"dp": size}
-        self.axis_names = ("dp",)
+    def __init__(self, size: int, rank: int, device: torch.device,
+                 ones=()) -> None:
+        self.shape = {"dp": size, **{name: 1 for name in ones}}
+        self.axis_names = tuple(self.shape)
         self.size = size
         self.rank = rank
         self.device = device
@@ -102,7 +108,7 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(world, rank, dev)
+    return Mesh(world, rank, dev, ones=[k for k in axes if k != "dp"])
 
 
 def batch_sharding(mesh: Mesh, axis: str = "dp") -> Sharding:
@@ -150,20 +156,39 @@ def shard_batch(mesh: Mesh, batch, axis: str = "dp"):
     return tree_map(lambda x: device_put_local_rows(x, sharding), batch)
 
 
-def shard_params_fsdp(mesh: Mesh, params, axis: str = "fsdp"):
-    raise _fsdp_not_ported()
+def shard_params_fsdp(mesh: Mesh, module: torch.nn.Module,
+                      axis: str = "fsdp") -> torch.nn.Module:
+    """ZeRO-style sharding of ``module``'s parameters over ``axis``, at the
+    one size the port serves: 1, where every tensor stays whole on the
+    mesh's device (the JAX function's placement on an axis of size 1);
+    the module is moved in place and returned. A mesh without the axis,
+    or with it larger than 1, raises, naming ROADMAP item 5."""
+    if mesh.shape.get(axis) != 1:
+        raise _fsdp_not_ported()
+    return module.to(mesh.device)
 
 
 def data_parallel(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Wrap ``model`` for data parallelism over ``mesh``'s process group:
-    ``DistributedDataParallel`` (rank 0's parameters and buffers are
-    broadcast now; each backward averages the gradients over the ranks,
-    bucketed and overlapped with the backward). Without a group (a
-    one-worker stage) it returns ``model`` itself."""
+    ``DistributedDataParallel`` (rank 0's parameters are broadcast now;
+    each backward averages the gradients over the ranks, bucketed and
+    overlapped with the backward). Without a group (a one-worker stage) it
+    returns ``model`` itself.
+
+    Buffers are not broadcast before each forward (DDP's
+    ``forward_sync_buffers=False``, ``broadcast_buffers=False`` before
+    torch 2.13): the only buffers of the port's models are batch-norm
+    running averages, which every rank initialises alike or restores from
+    the same checkpoint, and which stage-wide batch norm
+    (:mod:`edl_tpu_torch.models.resnet`) updates from the same all-reduced
+    statistics on every rank, so they stay equal without a broadcast."""
     if not (dist.is_available() and dist.is_initialized()):
         return model
     from torch.nn.parallel import DistributedDataParallel
 
     ids = [mesh.device] if mesh.device.type == "cuda" else None
-    return DistributedDataParallel(model, device_ids=ids)
+    no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+               inspect.signature(DistributedDataParallel).parameters
+               else "broadcast_buffers")
+    return DistributedDataParallel(model, device_ids=ids, **{no_sync: False})
 

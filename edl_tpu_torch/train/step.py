@@ -10,7 +10,11 @@ What changes with the framework:
 - ``TrainState`` holds the module (``apply_fn``), the optimizer transform
   (``tx``) and its torch optimizer (``opt_state``); ``params`` are the
   module's parameters. Batch-norm statistics live in module buffers, so
-  there is no ``batch_stats`` field.
+  there is no ``batch_stats`` field; a model "has batch stats" when it
+  holds batch-norm layers (:func:`edl_tpu_torch.models.resnet.batch_norms`),
+  and the steps then keep the JAX step's rules for ``batch_stats``: one
+  full-batch pass (no GNS halves), the masked step refuses it, the eval
+  steps normalise with the running averages.
 - ``donate=True`` (the default, as in the JAX package) becomes an in-place
   update: the step returns the state it was given, changed. With
   ``donate=False`` the step leaves the given state untouched and returns
@@ -21,6 +25,8 @@ What changes with the framework:
   that splits into equal even halves, the gradient is the mean of two
   half-batch gradients, as in the JAX step. ``aux_losses=True`` waits for
   the MoE FFN that sows them (M15) and raises, naming the item.
+- ``apply_kwargs`` reach the model's forward; ``{"train": b}`` also sets
+  the module's mode (``module.train(b)``) before the forward.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from edl_tpu_torch.models.resnet import batch_norms
 from edl_tpu_torch.obs import numerics as obs_numerics
 from edl_tpu_torch.train.optim import OptState, Transform
 from edl_tpu_torch.utils.device import resolve_device
@@ -68,8 +75,8 @@ class TrainState:
         return self
 
     def copy(self) -> "TrainState":
-        """A deep copy (module, optimizer and its state), for a step that
-        must leave its input untouched."""
+        """A deep copy (module with its buffers, optimizer and its state),
+        for a step that must leave its input untouched."""
         return copy.deepcopy(self)
 
 
@@ -160,6 +167,22 @@ def _split_size(batch) -> Optional[int]:
     return b if b >= 2 and b % 2 == 0 else None
 
 
+def _set_mode(module: torch.nn.Module, kwargs: Dict[str, Any]) -> None:
+    """``{"train": b}`` in the apply kwargs sets the module's mode."""
+    if "train" in kwargs and module.training != bool(kwargs["train"]):
+        module.train(bool(kwargs["train"]))
+
+
+def _eval_kwargs(module: torch.nn.Module, kwargs: Dict[str, Any]
+                 ) -> Dict[str, Any]:
+    """An eval step's apply kwargs: a model with batch stats normalises
+    with its running averages (``train=False``), as the JAX eval step
+    applies the stored ``batch_stats`` without updating them."""
+    if batch_norms(module):
+        return {**kwargs, "train": False}
+    return kwargs
+
+
 def _halves(batch, h: int):
     first = torch.utils._pytree.tree_map(lambda a: a[:h], batch)
     second = torch.utils._pytree.tree_map(lambda a: a[h:], batch)
@@ -186,7 +209,9 @@ def make_train_step(loss_head: LossHead,
     set aside while the second backward fills fresh ones (one model's
     worth of fp32 gradients more, no copy); under data parallelism both
     backwards all-reduce, so each half is a gradient over half of the
-    global batch."""
+    global batch. A model with batch stats takes one full-batch pass (two
+    half-batch forwards would update its running averages twice, from
+    half-batch statistics), as the JAX step decides for ``batch_stats``."""
     if aux_losses:
         raise NotImplementedError(
             "aux_losses=True collects what the MoE FFN sows: ROADMAP M15, "
@@ -203,6 +228,7 @@ def make_train_step(loss_head: LossHead,
     def step(state: TrainState, batch):
         if not donate:
             state = state.copy()
+        _set_mode(state.apply_fn, kwargs)
         x, y = batch
         if not numerics:
             loss, metrics = forward_backward(state, x, y)
@@ -210,7 +236,8 @@ def make_train_step(loss_head: LossHead,
             return state, {"loss": loss, **metrics}
         params = [p for p in state.params.values() if p.is_floating_point()]
         dev = params[0].device if params else None
-        b = _split_size(batch) if want_gns else None
+        b = (_split_size(batch)
+             if want_gns and not batch_norms(state.apply_fn) else None)
         half_sq = None
         if b is not None:
             (x1, y1), (x2, y2) = _halves((x, y), b // 2)
@@ -284,12 +311,19 @@ def make_masked_train_step(loss_head: LossHead,
     """Step over a PADDED batch: ``step(state, (x, y), mask) -> (state,
     metrics, n_valid)``; the loss is the sum of per-example losses over
     valid rows divided by the valid count, so the gradient is plain SGD
-    over exactly the valid rows."""
+    over exactly the valid rows. A model with batch stats is refused, as
+    in the JAX step: pad rows would pollute the running statistics."""
     kwargs = dict(apply_kwargs or {})
 
     def step(state: TrainState, batch, mask):
+        if batch_norms(state.apply_fn):
+            raise ValueError(
+                "masked train step does not support batch_stats models: "
+                "pad rows would pollute the running BN statistics"
+            )
         if not donate:
             state = state.copy()
+        _set_mode(state.apply_fn, kwargs)
         x, y = batch
         outputs = state.apply_fn(x, **kwargs)
         loss, metrics, n_valid = _masked_reduce(
@@ -309,7 +343,8 @@ def make_eval_step(loss_head: LossHead,
     @torch.no_grad()
     def step(state: TrainState, batch):
         x, y = batch
-        loss, metrics = loss_head(state.apply_fn(x, **kwargs), y)
+        outputs = state.apply_fn(x, **_eval_kwargs(state.apply_fn, kwargs))
+        loss, metrics = loss_head(outputs, y)
         return {"loss": loss, **metrics}
 
     return step
@@ -324,7 +359,7 @@ def make_masked_eval_step(loss_head: LossHead,
     @torch.no_grad()
     def step(state: TrainState, batch, mask):
         x, y = batch
-        outputs = state.apply_fn(x, **kwargs)
+        outputs = state.apply_fn(x, **_eval_kwargs(state.apply_fn, kwargs))
         loss, metrics, n_valid = _masked_reduce(
             loss_head, outputs, y, mask, "eval"
         )

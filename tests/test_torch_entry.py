@@ -146,3 +146,37 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     )
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_resnet_entry_points_default_to_cuda(monkeypatch):
+    """The slice's entry points (the driver entry, the headline bench's
+    measurement, the flagship example, the trainer's state) run on the
+    card unless told otherwise, and raise without one."""
+    from edl_tpu_torch import entry
+    from edl_tpu_torch.examples import resnet_collective
+    from edl_tpu_torch.models.resnet import ResNet
+    from edl_tpu_torch.tools import bench
+    from edl_tpu_torch.train import sgd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (entry.entry, bench.measure,
+                 lambda: resnet_collective.main([]),
+                 lambda: create_state(ResNet((1, 1), width=8), 0, sgd(0.1))):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_resnet_entry_forward_on_cpu():
+    """``entry(device="cpu")``: ResNet50_vd's eval forward over its
+    parameters and buffers at [8, 64, 64, 3]: finite fp32 logits, the
+    same as the module's own eval forward."""
+    from edl_tpu_torch import entry
+
+    forward, (params, buffers, x) = entry.entry(device="cpu")
+    assert x.shape == (8, 64, 64, 3)
+    x = torch.from_numpy(np.random.RandomState(0).standard_normal(
+        (8, 64, 64, 3)).astype(np.float32))
+    logits = forward(params, buffers, x)
+    assert logits.shape == (8, 1000) and logits.dtype == torch.float32
+    assert bool(torch.isfinite(logits).all())
+    assert len(buffers) == 2 * 55  # mean and var of each of the 55 BNs
