@@ -131,6 +131,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              step's global loss agrees with a world-1 run of the schedule
              on the concatenated batches in this process, and the time to
              recover. No kernel of K1-K3 lies on this path.
+11. fsdp   - ResNet50_vd at 224x224 under FSDP2 (``parallel.
+             shard_params_fsdp``): (a) built on ``meta``, sharded over a
+             one-rank NCCL group (its parameters ``DTensor``s), drawn by
+             ``init_weights(0)``, five SGD steps at batch 256 against the
+             unsharded step from the same draws and batches (cuDNN
+             deterministic: bit for bit, else 1e-6 relative), then both
+             timed at phase resnet's cuDNN settings: step ms, img/s, peak
+             memory, host enqueue against device ms; (b) a sharded DCP
+             save and a collective restore into a freshly sharded module,
+             bit for bit; (c) ``ElasticTrainer(fsdp=True)`` at fsdp 2:
+             two pods on the port's store and launcher, two ranks on the
+             card over gloo, three steps at a global batch of 32: each
+             rank's parameter and momentum bytes half of (a)'s, the
+             losses within 1e-3 of world 1 on the same batches, its
+             version restored at fsdp 1 on the card and (a)'s fsdp-1
+             version restored at fsdp 2, both bit for bit against the
+             gathered saved state. No kernel of K1-K3 lies on this path.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -141,7 +158,8 @@ prints no result. Imports nothing of JAX or of the JAX package.
 ``python3 chip_smoke.py --elastic-launched OUT_DIR`` are phase elastic's
 worker processes (the reference, and the worker the launcher spawns),
 ``python3 chip_smoke.py --resnet-launched OUT_DIR -- ARGS`` phase
-resnet's, all started by the phases themselves.
+resnet's, ``python3 chip_smoke.py --fsdp-launched OUT_DIR FSDP1_DIR`` phase
+fsdp's, all started by the phases themselves.
 """
 
 import concurrent.futures
@@ -290,6 +308,18 @@ RESNET_BENCH_ENV = {"EDL_BENCH_BATCH": "256", "EDL_BENCH_INPUT": "pipeline",
 # as E[x^2] - E[x]^2 over an all-reduce, carried through 12 SGD steps)
 RESNET_JOB_BATCH = 64
 TOL_RN_JOB = 1e-2
+# phase fsdp: ResNet50_vd at 224x224 under FSDP2. (a) five steps at batch
+# 256 sharded over a one-rank NCCL group against the unsharded step (cuDNN
+# deterministic for both), then timed steps of each; (c) two ranks on the
+# card over gloo at a global batch of FSDP_JOB_BATCH, FSDP_JOB_STEPS steps
+FSDP_BATCH = 256
+FSDP_CHECK_STEPS = 5
+FSDP_WARMUP = 3
+FSDP_TIMED_STEPS = 10
+FSDP_JOB_BATCH = 32
+FSDP_JOB_STEPS = 3
+TOL_FSDP_STEP = 1e-6  # sharded vs unsharded, relative, when not bit for bit
+TOL_FSDP_JOB = 1e-3   # world-2 fsdp-2 losses against world 1
 
 
 def emit(obj) -> None:
@@ -2984,6 +3014,390 @@ def phase_resnet(torch, smi: str) -> dict:
     return out
 
 
+def _fsdp_batches(torch, n: int, batch: int):
+    """``n`` seeded [batch, 224, 224, 3] image batches and their labels,
+    drawn on the host (the same in every process)."""
+    import numpy as np
+
+    return [(torch.from_numpy(np.random.default_rng(500 + i).standard_normal(
+                (batch, 224, 224, 3), dtype=np.float32)),
+             torch.from_numpy(np.random.default_rng(600 + i).integers(
+                 0, 1000, (batch,)).astype(np.int64)))
+            for i in range(n)]
+
+
+def _one_rank_nccl(torch):
+    import torch.distributed as dist
+
+    from edl_tpu_torch.utils.net import find_free_ports
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method="tcp://127.0.0.1:%d" % find_free_ports(1)[0],
+        world_size=1, rank=0)
+
+
+def _leave_group(torch) -> None:
+    from edl_tpu_torch.train import context
+
+    context._teardown_group()  # the mesh and checkpoint groups with it
+    torch.cuda.empty_cache()
+
+
+def _fsdp_state(torch, sharded: bool):
+    """ResNet50_vd (bf16 compute, fp32 masters) from ``init_weights(0)``
+    on the card and SGD 0.1 momentum 0.9, as phase resnet's bench builds
+    it; ``sharded``: built on ``meta``, sharded by ``shard_params_fsdp``
+    over the stage's fsdp axis, then its shards materialised and drawn."""
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.parallel import make_mesh, shard_params_fsdp
+    from edl_tpu_torch.train import create_state, sgd
+
+    if not sharded:
+        model = ResNet50_vd(num_classes=1000, device=torch.device("cuda"))
+        return create_state(model, 0, sgd(0.1, momentum=0.9), device="cuda")
+    model = ResNet50_vd(num_classes=1000, device=torch.device("meta"))
+    shard_params_fsdp(make_mesh({"dp": 1, "fsdp": -1}, device="cuda"), model)
+    model.to_empty(device="cuda")
+    return create_state(model, 0, sgd(0.1, momentum=0.9), device="cuda")
+
+
+def full_digest(torch, state) -> dict:
+    """:func:`state_digest` of the whole tensors of a possibly sharded
+    state: every rank's ``DTensor`` shards go to rank 0 as host objects
+    and are put in their places there (collective; no DTensor collective,
+    which gloo does not carry for tensors on the card). {} on a rank
+    other than 0."""
+    import torch.distributed as dist
+    from torch.distributed.checkpoint.state_dict import get_state_dict
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    model_sd, optim_sd = get_state_dict(state.apply_fn,
+                                        state.opt_state.optimizer)
+    tensors = {"model/" + k: v for k, v in model_sd.items()}
+    for name, slots in optim_sd["state"].items():
+        for slot, v in slots.items():
+            if torch.is_tensor(v):
+                tensors["optim/%s/%s" % (name, slot)] = v
+    tensors["step"] = state.step
+    parts = {}
+    for key, t in tensors.items():
+        if isinstance(t, DTensor):
+            _shape, offset = compute_local_shape_and_global_offset(
+                t.shape, t.device_mesh, t.placements)
+            parts[key] = (tuple(t.shape), offset, t.to_local().detach().cpu())
+        else:
+            parts[key] = (None, None, t.detach().cpu())
+    everyone = [parts]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, parts)
+        if dist.get_rank() != 0:
+            return {}
+    out = {}
+    for key in sorted(parts):
+        shape, _offset, whole = everyone[0][key]
+        if shape is not None:
+            whole = torch.empty(shape, dtype=whole.dtype)
+            for rank_parts in everyone:
+                _s, offset, local = rank_parts[key]
+                whole[tuple(slice(o, o + n) for o, n in
+                            zip(offset, local.shape))] = local
+        raw = whole.contiguous().reshape(-1).view(torch.uint8)
+        out[key] = hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+    return out
+
+
+def _shard_bytes(torch, state) -> dict:
+    """This rank's parameter and momentum bytes (its shards under FSDP)."""
+    def local(t):
+        t = getattr(t, "_local_tensor", t)
+        return t.numel() * t.element_size()
+
+    params = sum(local(p) for p in state.apply_fn.parameters())
+    moments = sum(local(v) for slots in
+                  state.opt_state.optimizer.state.values()
+                  for v in slots.values() if torch.is_tensor(v))
+    return {"params": params, "momentum": moments}
+
+
+def _fsdp_steps(torch, state, batches, timed: int) -> dict:
+    """The check steps with cuDNN deterministic (their losses and the
+    parameters after them, whole), then, at phase resnet's bench settings
+    (cuDNN benchmark), FSDP_WARMUP steps and ``timed`` steps on the last
+    batch: step ms, img/s, peak memory, the host's time to queue one step
+    and its device time."""
+    from torch.distributed.tensor import DTensor
+
+    from edl_tpu_torch.tools import bench
+    from edl_tpu_torch.train import cross_entropy_loss, make_train_step
+
+    step = make_train_step(cross_entropy_loss, {"train": True})
+    dev = [(x.cuda(), y.cuda()) for x, y in batches]
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    losses = []
+    try:
+        for b in dev:
+            state, m = step(state, b)
+            losses.append(m["loss"])
+        losses = [float(v) for v in torch.stack(losses).tolist()]
+    finally:
+        cudnn.deterministic, cudnn.benchmark = False, True
+    params = {k: (v.full_tensor() if isinstance(v, DTensor) else v
+                  ).detach().clone()
+              for k, v in state.apply_fn.named_parameters()}
+    for _ in range(FSDP_WARMUP):
+        state, m = step(state, dev[-1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, m = step(state, dev[-1])
+    float(m["loss"])
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    state, _ = step(state, dev[-1])
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    prof = bench.device_breakdown(lambda: step(state, dev[-1]))
+    cudnn.deterministic, cudnn.benchmark = saved
+    return {"state": state, "losses": losses, "params": params,
+            "step_ms": step_ms, "img_per_s": FSDP_BATCH / step_ms * 1e3,
+            "peak_memory_bytes": peak, "host_enqueue_ms": enqueue_ms,
+            "device_ms": prof["device_ms"],
+            "kernels_per_step": prof["kernels"]}
+
+
+def fsdp_launched(torch, out_dir: str, fsdp1_dir: str) -> None:
+    """The worker the port's launcher spawns in phase fsdp (``python3
+    chip_smoke.py --fsdp-launched OUT_DIR FSDP1_DIR``): ``ElasticTrainer(
+    fsdp=True)`` on ResNet50_vd at 224x224, the global batch on every
+    rank (``{"dp": 1, "fsdp": -1}``), one epoch of FSDP_JOB_STEPS steps
+    and its checkpoint; each step's loss, this rank's shard bytes and the
+    gathered state's digest; then phase (a)'s fsdp-1 version restored
+    into the same sharded state, digested."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.checkpoint import CheckpointManager
+    from edl_tpu_torch.models.resnet import ResNet50_vd
+    from edl_tpu_torch.obs import memory
+    from edl_tpu_torch.train import ElasticTrainer, cross_entropy_loss, sgd
+    from edl_tpu_torch.train import loop
+
+    rank = int(os.environ["EDL_WORKER_RANK"])
+    rec = {"pid": os.getpid(), "rank": rank, "steps": [],
+           "spawn_ts": float(os.environ.get("EDL_SPAWN_TS", "0"))}
+    make = loop.make_train_step
+
+    def observed_make(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step(state, batch):
+            state, m = inner(state, batch)
+            rec["steps"].append(float(m["loss"]))
+            return state, m
+
+        return step
+
+    loop.make_train_step = observed_make
+    batches = _fsdp_batches(torch, FSDP_JOB_STEPS, FSDP_JOB_BATCH)
+    trainer = ElasticTrainer(
+        ResNet50_vd(num_classes=1000), lambda o: sgd(0.1, momentum=0.9),
+        cross_entropy_loss, fsdp=True, mesh_axes={"dp": 1, "fsdp": -1},
+        ckpt_dir=os.environ["EDL_CKPT_PATH"], apply_kwargs={"train": True},
+        seed=0, log=False, device="cuda")
+    state = trainer.fit(lambda epoch: ((x.numpy(), y.numpy())
+                                       for x, y in batches), 1)
+    rec["world"] = dist.get_world_size()
+    rec["mesh"] = trainer.mesh.shape
+    rec["bytes"] = _shard_bytes(torch, state)
+    rec["plan_state_bytes"] = memory.state_bytes(state)
+    rec["saved"] = full_digest(torch, state)
+    with CheckpointManager(fsdp1_dir) as mngr:
+        state, status = mngr.restore(state)
+    rec["fsdp1_restored_step"] = status.step if status else None
+    rec["fsdp1_restored"] = full_digest(torch, state)
+    _write_json(os.path.join(out_dir, "rec.%d.json" % rank), rec)
+    dist.barrier()
+
+
+def phase_fsdp(torch, smi: str) -> dict:
+    """ResNet50_vd under FSDP2 (see the module docstring): (a) sharded
+    over a one-rank NCCL group against the unsharded step, (b) a sharded
+    DCP round trip, (c) two ranks at fsdp 2 through the port's store and
+    launcher, and the versions resharded 2 -> 1 and 1 -> 2."""
+    import shutil
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from edl_tpu_torch.checkpoint import CheckpointManager, TrainStatus
+    from edl_tpu_torch.train import cross_entropy_loss, make_train_step
+
+    t0 = time.monotonic()
+    work = tempfile.mkdtemp(prefix="edl-fsdp-")
+    fsdp1_dir = os.path.join(work, "fsdp1")
+    batches = _fsdp_batches(torch, FSDP_CHECK_STEPS, FSDP_BATCH)
+    bare = _fsdp_steps(torch, _fsdp_state(torch, False), batches,
+                       FSDP_TIMED_STEPS)
+    bare_bytes = _shard_bytes(torch, bare.pop("state"))
+    torch.cuda.empty_cache()
+    _one_rank_nccl(torch)
+    try:
+        state = _fsdp_state(torch, True)
+        kinds = {type(p).__name__ for p in state.apply_fn.parameters()}
+        check(kinds == {"DTensor"}, "fsdp (a): parameters are %s" % kinds)
+        run = _fsdp_steps(torch, state, batches, FSDP_TIMED_STEPS)
+        state = run.pop("state")
+        a_bytes = _shard_bytes(torch, state)
+        # (b) the sharded version and a collective restore into a
+        # freshly sharded module
+        t_b = time.monotonic()
+        with CheckpointManager(fsdp1_dir) as mngr:
+            mngr.save(state, TrainStatus(epoch=0, step=int(state.step)))
+        saved = full_digest(torch, state)
+        want = {k: v.to_local().clone()
+                for k, v in state.apply_fn.state_dict().items()
+                if isinstance(v, DTensor)}
+        want_m = [v.to_local().clone() for slots in
+                  state.opt_state.optimizer.state.values()
+                  for v in slots.values() if isinstance(v, DTensor)]
+        del state
+        torch.cuda.empty_cache()
+        fresh = _fsdp_state(torch, True)
+        with CheckpointManager(fsdp1_dir) as mngr:
+            fresh, status = mngr.restore(fresh)
+        got = {k: v.to_local() for k, v in
+               fresh.apply_fn.state_dict().items()
+               if isinstance(v, DTensor)}
+        got_m = [v.to_local() for slots in
+                 fresh.opt_state.optimizer.state.values()
+                 for v in slots.values() if isinstance(v, DTensor)]
+        b_equal = (status is not None and sorted(got) == sorted(want)
+                   and all(torch.equal(got[k], want[k]) for k in want)
+                   and len(got_m) == len(want_m)
+                   and all(torch.equal(a, b)
+                           for a, b in zip(got_m, want_m))
+                   and full_digest(torch, fresh) == saved)
+        b_s = time.monotonic() - t_b
+        del fresh
+    finally:
+        _leave_group(torch)
+    diffs = [float((run["params"][k] - bare["params"][k]).abs().max()
+                   / bare["params"][k].abs().max().clamp(min=1e-30))
+             for k in bare["params"]]
+    loss_diff = max(abs(a - b) / abs(b)
+                    for a, b in zip(run["losses"], bare["losses"]))
+    a_bit = (run["losses"] == bare["losses"]
+             and all(torch.equal(run["params"][k], bare["params"][k])
+                     for k in bare["params"]))
+    del run["params"], bare["params"]
+    torch.cuda.empty_cache()
+
+    # (c) two ranks on the card at fsdp 2, through the port's control plane
+    cp = _ControlPlane(os.path.join(work, "job"), "chip-smoke-fsdp", False)
+    script = [os.path.abspath(__file__), "--fsdp-launched", cp.out, fsdp1_dir]
+    t_c = time.monotonic()
+    try:
+        pods = [cp.pod(script, nodes="2:2") for _ in range(2)]
+        rcs = [p.wait(timeout=ELASTIC_WAIT_S) for p in pods]
+        recs = sorted(cp.records(), key=lambda r: r["rank"])
+        versions = cp.versions()
+        check(rcs == [0, 0] and len(recs) == 2 and versions,
+              "fsdp (c): launchers %s, %d records, versions %s"
+              % (rcs, len(recs), versions))
+    except BaseException:
+        for name in sorted(os.listdir(cp.logs)):
+            sys.stderr.write("--- %s\n%s" % (
+                name, _tail(os.path.join(cp.logs, name))))
+        raise
+    finally:
+        cp.close()
+    c_s = time.monotonic() - t_c
+    # the fsdp-2 version restored at fsdp 1 on the card, and the world-1
+    # losses of the same global batches
+    _one_rank_nccl(torch)
+    try:
+        one = _fsdp_state(torch, True)
+        with CheckpointManager(cp.ckpt) as mngr:
+            one, status = mngr.restore(one)
+        restored_2to1 = status is not None and \
+            full_digest(torch, one) == recs[0]["saved"]
+        del one
+        torch.cuda.empty_cache()
+    finally:
+        _leave_group(torch)
+    ref = _fsdp_state(torch, False)
+    step = make_train_step(cross_entropy_loss, {"train": True})
+    ref_losses = []
+    for x, y in _fsdp_batches(torch, FSDP_JOB_STEPS, FSDP_JOB_BATCH):
+        ref, m = step(ref, (x.cuda(), y.cuda()))
+        ref_losses.append(float(m["loss"]))
+    del ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    job_err = [abs(a - b) / abs(b) for r in recs
+               for a, b in zip(r["steps"], ref_losses)]
+    half = [(r["bytes"]["params"] + r["bytes"]["momentum"])
+            / (a_bytes["params"] + a_bytes["momentum"]) for r in recs]
+    out = {
+        "phase": "fsdp", "model": "ResNet50_vd", "card": smi,
+        "a": {"batch": FSDP_BATCH, "steps": FSDP_CHECK_STEPS,
+              "backend": "nccl", "world_size": 1,
+              "losses": run["losses"], "losses_unsharded": bare["losses"],
+              "bit_for_bit": a_bit, "max_param_rel_diff": max(diffs),
+              "max_loss_rel_diff": loss_diff, "tol": TOL_FSDP_STEP,
+              "step_ms": run["step_ms"], "img_per_s": run["img_per_s"],
+              "step_ms_unsharded": bare["step_ms"],
+              "img_per_s_unsharded": bare["img_per_s"],
+              "peak_memory_bytes": run["peak_memory_bytes"],
+              "peak_memory_bytes_unsharded": bare["peak_memory_bytes"],
+              "host_enqueue_ms": run["host_enqueue_ms"],
+              "device_ms": run["device_ms"],
+              "host_enqueue_ms_unsharded": bare["host_enqueue_ms"],
+              "device_ms_unsharded": bare["device_ms"],
+              "kernels_per_step": run["kernels_per_step"],
+              "kernels_per_step_unsharded": bare["kernels_per_step"],
+              "bytes": a_bytes, "bytes_unsharded": bare_bytes},
+        "b": {"restored_bit_for_bit": b_equal, "seconds": b_s},
+        "c": {"world": [r["world"] for r in recs],
+              "mesh": recs[0]["mesh"], "backend": "gloo",
+              "global_batch": FSDP_JOB_BATCH, "steps": FSDP_JOB_STEPS,
+              "losses": [r["steps"] for r in recs],
+              "losses_world1": ref_losses, "loss_rel_err": job_err,
+              "tol": TOL_FSDP_JOB,
+              "bytes_per_rank": [r["bytes"] for r in recs],
+              "plan_state_bytes": [r["plan_state_bytes"] for r in recs],
+              "state_share_of_fsdp1": half,
+              "version": versions[-1],
+              "fsdp2_to_fsdp1_bit_for_bit": restored_2to1,
+              "fsdp1_to_fsdp2_bit_for_bit":
+                  recs[0]["fsdp1_restored"] == saved,
+              "seconds": c_s},
+        "seconds": time.monotonic() - t0,
+    }
+    emit(out)
+    check(a_bit or (max(diffs) <= TOL_FSDP_STEP
+                    and loss_diff <= TOL_FSDP_STEP),
+          "fsdp (a): sharded vs unsharded params %.3g, losses %.3g"
+          % (max(diffs), loss_diff))
+    check(b_equal, "fsdp (b): the sharded round trip is not bit for bit")
+    check(max(job_err) <= TOL_FSDP_JOB,
+          "fsdp (c): losses against world 1 %s" % job_err)
+    check(all(0.45 <= h <= 0.55 for h in half),
+          "fsdp (c): a rank's state is %s of fsdp 1's" % half)
+    check(out["c"]["fsdp2_to_fsdp1_bit_for_bit"]
+          and out["c"]["fsdp1_to_fsdp2_bit_for_bit"],
+          "fsdp (c): resharded restores 2->1 %s, 1->2 %s" % (
+              restored_2to1, out["c"]["fsdp1_to_fsdp2_bit_for_bit"]))
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "edl_tpu_torch")):
         sys.stderr.write(
@@ -3006,6 +3420,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--resnet-launched"]:
         resnet_launched(torch, sys.argv[2])
         return 0
+    if sys.argv[1:2] == ["--fsdp-launched"]:
+        fsdp_launched(torch, sys.argv[2], sys.argv[3])
+        return 0
     dev = phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
@@ -3019,6 +3436,7 @@ def main() -> int:
     tiers = phase_tiers(torch, dev["nvidia_smi"])
     phase_trainee(torch, dev["nvidia_smi"])
     phase_resnet(torch, dev["nvidia_smi"])
+    phase_fsdp(torch, dev["nvidia_smi"])
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")

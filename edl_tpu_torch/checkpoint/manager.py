@@ -30,6 +30,23 @@ train_with_fleet.py:422-428, 563-570); the contract is the JAX package's:
   unreadable ones and quarantines them (``<step>.corrupt``);
 - retention keeps the newest ``max_to_keep`` versions.
 
+**Sharded states** (FSDP2's ``DTensor`` parameters and optimizer state,
+``parallel.shard_params_fsdp``). Every rank writes its own shards; the
+planner's dedup drops only the copies that ``dp`` replicas hold. In a
+shared directory the version is whole as before. In pod-local dirs each
+pod's dir keeps its ranks' files, with rank 0's metadata (sent to every
+rank) and the status: a partial version, whose metadata names every
+file (:func:`version_files`). A restore into a sharded template is a
+collective DCP load over the checkpoint group, onto whatever fsdp size
+the stage has (DCP reshards). Before it the ranks agree on the newest
+step every one of them can make readable — a complete local version,
+the local part plus the other pods' parts from the peer replicas, or
+the durable copy (which every pod's mirror fills) — so that no rank
+waits in the load on a peer that holds another step; a failed load drops
+the step for all of them and quarantines it. A whole template restores a
+sharded version too (a resize to one rank without a group), through the
+same tiers.
+
 **Async saves** (``async_save=True``). ``save`` stages the state off the
 live tensors into a host copy it keeps between saves (pinned on the card)
 before it returns, so the next optimizer step may update the parameters
@@ -189,6 +206,80 @@ def _barrier() -> None:
         dist.barrier()
 
 
+def _pod_leader() -> bool:
+    """Rank 0 of this pod: the rank that finalizes, lands and quarantines
+    versions in the pod's local dir, which the pod's ranks share."""
+    try:
+        return int(os.environ.get("EDL_WORKER_RANK_IN_POD", "0") or 0) == 0
+    except ValueError:
+        return True
+
+
+def _sharded(state) -> bool:
+    """True when ``state`` holds ``DTensor`` shards (an FSDP-sharded
+    module, or a ``name -> tensor`` dict of them): each rank holds part
+    of the version, so saves keep every rank's files and loads are
+    collective."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(state, dict):
+        tensors = state.values()
+    else:
+        tensors = state.apply_fn.parameters()
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _gather(obj) -> List[Any]:
+    """Every rank's ``obj`` over the checkpoint group (collective); the
+    one-rank list without a group."""
+    if not _joined() or dist.get_world_size() == 1:
+        return [obj]
+    from edl_tpu_torch.train import context as _ctx
+
+    out: List[Any] = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj, group=_ctx.checkpoint_group())
+    return out
+
+
+def _metadata_file(step_dir: str) -> Optional[str]:
+    """DCP's ``.metadata`` of a version, put back from its twin when the
+    replica plane or a mirror landed the version; None without either."""
+    meta = os.path.join(step_dir, ".metadata")
+    twin = os.path.join(step_dir, METADATA_TWIN)
+    if not os.path.exists(meta) and os.path.exists(twin):
+        try:
+            _link_or_copy(twin, meta)
+        except OSError:
+            return None
+    return meta if os.path.exists(meta) else None
+
+
+def version_files(step_dir: str) -> Optional[set]:
+    """Every file a version needs: the DCP files its metadata names, the
+    metadata's twin and ``status.json``; None when the metadata is
+    missing or unreadable. Under shards each pod's local dir holds its
+    own ranks' files, so a version there may be partial."""
+    import torch.distributed.checkpoint as dcp
+
+    if _metadata_file(step_dir) is None:
+        return None
+    try:
+        md = dcp.FileSystemReader(step_dir).read_metadata()
+        names = {info.relative_path for info in md.storage_data.values()}
+    except Exception:  # noqa: BLE001 — a torn metadata file: no version
+        return None
+    return names | {METADATA_TWIN, STATUS_FILE}
+
+
+def _candidate(step_dir: str) -> bool:
+    """A version to try: complete, or torn (its metadata unreadable: the
+    load fails and quarantines it). A partial one, whose metadata names
+    files that other pods hold, is not."""
+    need = version_files(step_dir)
+    return need is None or all(
+        os.path.exists(os.path.join(step_dir, n)) for n in need)
+
+
 def _state_dict(state) -> Dict[str, Any]:
     """The DCP view of a ``TrainState``: name-keyed model and optimizer
     state (live tensors, no copies), the step and the optimizer's update
@@ -243,7 +334,14 @@ def _stage(sd, cache: Dict[tuple, torch.Tensor], key: tuple = ()):
     its tensors do not reach. Tensors land in ``cache``'s buffers (keyed
     by their path in ``sd``; pinned when the tensor is on the card, so the
     device-to-host copies run asynchronously until one synchronise), which
-    the next save reuses; everything else is deep-copied."""
+    the next save reuses; everything else is deep-copied. A ``DTensor``'s
+    local shard is copied, and the copy keeps its placement (the DCP
+    writer needs where the shard sits in the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(sd, DTensor):
+        local = _stage(sd.to_local(), cache, key)
+        return DTensor(local, sd._spec, requires_grad=False)
     if torch.is_tensor(sd):
         buf = cache.get(key)
         if buf is None or buf.shape != sd.shape or buf.dtype != sd.dtype:
@@ -394,6 +492,10 @@ class CheckpointManager:
             except Exception as exc:  # noqa: BLE001 — the stamp must never fail a save
                 logger.warning("numerics fingerprint stamp failed: %s", exc)
             t_stage = time.monotonic()
+            sharded = _sharded(state)
+            # under shards every pod's local dir keeps its ranks' files;
+            # else rank 0's dir holds the version
+            pods = sharded and self.durable_path is not None
             sd = _state_dict(state)
             nbytes = _sd_bytes(sd)
             if self._async:
@@ -402,7 +504,7 @@ class CheckpointManager:
                 if torch.cuda.is_available() and torch.cuda.is_initialized():
                     torch.cuda.synchronize()
             stage_s = time.monotonic() - t_stage
-            if _is_rank0():
+            if _pod_leader() if pods else _is_rank0():
                 shutil.rmtree(tmp, ignore_errors=True)  # a torn earlier try
             _barrier()
             writer = dcp.FileSystemWriter(
@@ -423,14 +525,14 @@ class CheckpointManager:
                 self._inflight = _InFlight(step)
                 threading.Thread(
                     target=self._finalize_when_written,
-                    args=(self._inflight, fut, tmp, final, status_doc),
+                    args=(self._inflight, fut, tmp, final, status_doc, pods),
                     name="edl-ckpt-finalize", daemon=True,
                 ).start()
             else:
                 with _dcp_call():
                     dcp.save(sd, storage_writer=writer, planner=planner,
                              no_dist=not _joined())
-                self._finalize(step, tmp, final, status_doc)
+                self._finalize(step, tmp, final, status_doc, pods)
                 _barrier()
             dt = time.monotonic() - t0
             _M_SAVE_SECONDS.observe(dt)
@@ -444,16 +546,45 @@ class CheckpointManager:
                 wait_prev_s=round(wait_prev, 4), stage_s=round(stage_s, 4),
                 stamp_s=round(t_stage - t_stamp, 4),
             )
-        if not self._async and self._replicator is not None and _is_rank0():
+        if not self._async and self._replicator is not None and \
+                (pods or _is_rank0()):
             self._replicator.note_save(step)
         return step
 
-    def _finalize(self, step: int, tmp: str, final: str, status_doc) -> None:
+    def _finalize(self, step: int, tmp: str, final: str, status_doc,
+                  pods: bool = False) -> None:
         """Rank 0: status, fsync, rename, retention. Another rank removes
         its own directory's leftovers when that directory is not rank 0's
         (every rank's write has resolved after rank 0 wrote DCP's
-        ``.metadata``, so a shared directory always shows it)."""
-        if not _is_rank0():
+        ``.metadata``, so a shared directory always shows it).
+
+        With ``pods`` (a sharded state in pod-local dirs) every pod's dir
+        keeps its ranks' DCP files: rank 0's ``.metadata`` goes to every
+        rank over the checkpoint group (collective), and each pod's leader
+        finalizes its dir as a partial version that names every file."""
+        if pods:
+            meta = None
+            if _is_rank0():
+                with open(os.path.join(tmp, ".metadata"), "rb") as fh:
+                    meta = fh.read()
+            if _joined() and dist.get_world_size() > 1:
+                from edl_tpu_torch.train import context as _ctx
+
+                box = [meta]
+                dist.broadcast_object_list(
+                    box, src=0, group=_ctx.checkpoint_group())
+                meta = box[0]
+            if not _pod_leader():
+                return
+            os.makedirs(tmp, exist_ok=True)  # a pod whose ranks wrote nothing
+            path = os.path.join(tmp, ".metadata")
+            if not os.path.exists(path):
+                with open(path + ".part", "wb") as fh:
+                    fh.write(meta)
+                    fh.flush()
+                    os.fsync(fh.fileno())
+                os.replace(path + ".part", path)
+        elif not _is_rank0():
             if os.path.isdir(tmp) and not os.path.exists(
                     os.path.join(tmp, ".metadata")):
                 shutil.rmtree(tmp, ignore_errors=True)
@@ -470,15 +601,15 @@ class CheckpointManager:
         self._retain()
 
     def _finalize_when_written(self, pending: _InFlight, fut, tmp, final,
-                               status_doc) -> None:
+                               status_doc, pods: bool = False) -> None:
         try:
             fut.result()
             pending.write_s = time.monotonic() - pending.t_start
             t0 = time.monotonic()
-            self._finalize(pending.step, tmp, final, status_doc)
+            self._finalize(pending.step, tmp, final, status_doc, pods)
             pending.finalize_s = time.monotonic() - t0
             pending.ok = True
-            if self._replicator is not None and _is_rank0():
+            if self._replicator is not None and (pods or _is_rank0()):
                 # replicates while the job trains, not at its last wait()
                 self._replicator.note_save(pending.step)
         except Exception as exc:  # noqa: BLE001 — a failed write leaves the
@@ -679,17 +810,23 @@ class CheckpointManager:
 
         status = self._read_status(step)
         step_dir = os.path.join(self.path, str(step))
-        meta = os.path.join(step_dir, ".metadata")
-        twin = os.path.join(step_dir, METADATA_TWIN)
-        if not os.path.exists(meta) and os.path.exists(twin):
-            _link_or_copy(twin, meta)  # landed by the replica plane
+        _metadata_file(step_dir)  # landed by the replica plane: put it back
         sd = _state_dict(template)
         from torch.distributed.checkpoint.api import CheckpointException
 
+        # a sharded template loads collectively: each rank reads the parts
+        # of the version its shards cover, whatever sharding wrote them
+        # (DCP reshards); a whole one loads alone
+        collective = _joined() and _sharded(template)
+        group = None
+        if collective:
+            from edl_tpu_torch.train import context as _ctx
+
+            group = _ctx.checkpoint_group()
         try:
             with _dcp_call():
                 dcp.load(sd, storage_reader=dcp.FileSystemReader(step_dir),
-                         no_dist=True)
+                         process_group=group, no_dist=not collective)
         except CheckpointException as exc:
             # DCP's error is a BaseException: as such it would pass every
             # fallback of the ladder and take the job down on one torn file
@@ -714,21 +851,24 @@ class CheckpointManager:
         ``edl_ckpt_restore_fallbacks_total``) and quarantined.
 
         With a local tier armed, restore walks the TIER LADDER, freshness
-        first: candidate steps are gathered from the local dir, the
-        complete PEER replicas advertised in ``ckpt/replicas/`` manifests
-        and the DURABLE backstop, then tried newest step first with ties
-        preferring the cheapest read (local → peer → durable). Peer steps
-        are assembled file by file into the local tier (digest-verified,
-        atomic step-dir rename); durable steps are copied in; an
-        assembled or copied version that still fails DCP's load or its
-        fingerprint is quarantined like any torn version and the walk
-        goes on. Only when every tier is exhausted does the last error
-        propagate. An explicit ``step`` pins the restore to the primary
-        tier."""
+        first: candidate steps are gathered from the local dir, the PEER
+        replicas advertised in ``ckpt/replicas/`` manifests (the union of
+        every source pod's, with the local files) and the DURABLE
+        backstop, then tried newest step first with ties preferring the
+        cheapest read (local → peer → durable). Missing files are fetched
+        or copied into the local tier (digest-verified, merged with the
+        local ones, atomic step-dir rename); a landed version that still
+        fails DCP's load or its fingerprint is quarantined like any torn
+        version and the walk goes on. Only when every tier is exhausted
+        does the last error propagate. An explicit ``step`` pins the
+        restore to the primary tier. A sharded template restores through
+        :meth:`_restore_sharded` (the ranks agree on the step first)."""
         self._join()
         candidates = self._candidates(step)
         if _FP_RESTORE.armed and (candidates or self.durable_path):
             _FP_RESTORE.fire(step=candidates[0] if candidates else -1)
+        if step is None and _sharded(template):
+            return self._restore_sharded(template)
         last_exc: List[Optional[Exception]] = [None]
         bad: list = []
         if step is not None:
@@ -748,10 +888,10 @@ class CheckpointManager:
             if last_exc[0] is not None:
                 raise last_exc[0]
             return template, None
-        return self._restore_ladder(template, candidates, last_exc, bad)
+        return self._restore_ladder(template, last_exc, bad)
 
     def _restore_ladder(
-        self, template, local_steps, last_exc, bad
+        self, template, last_exc, bad
     ) -> Tuple[Any, Optional[TrainStatus]]:
         """Freshness-FIRST tier walk: candidate steps are gathered from
         every tier and tried newest step first regardless of tier (a
@@ -759,46 +899,12 @@ class CheckpointManager:
         e.g. a push that failed while the background mirror landed);
         ties prefer the cheapest read: local → peer → durable. Each rank
         walks its own pod's tiers and quarantines in its own local dir."""
-        from edl_tpu_torch.checkpoint import replicate as _replicate
-
-        # ONE store client for the whole walk: recovery is when the
-        # control plane is most likely degraded, and per-attempt 5s
-        # connect timeouts would eat the downtime budget reconnecting
-        peer_client = None
-        peer_steps: List[int] = []
-        if self._peer_tier_enabled():
-            try:
-                from edl_tpu_torch.store.client import connect_store
-
-                peer_client = connect_store(
-                    os.environ.get("EDL_STORE_ENDPOINT", ""), timeout=5.0
-                )
-                peer_steps = _replicate.peer_complete_steps(
-                    client=peer_client,
-                    job_id=os.environ.get("EDL_JOB_ID", ""),
-                )
-            except Exception as exc:  # noqa: BLE001 — a tier, not a gate
-                logger.warning("peer-tier peek failed: %s", exc)
+        client = self._peer_client()
         try:
-            durable_steps = _replicate.finalized_steps(self.durable_path)
-            plan: List[Tuple[int, str]] = []
-            for s in sorted(
-                {*local_steps, *peer_steps, *durable_steps}, reverse=True
-            ):
-                if s in local_steps:
-                    plan.append((s, self._tier))
-                if s in peer_steps:
-                    plan.append((s, "peer"))
-                if s in durable_steps:
-                    plan.append((s, "durable"))
-            for s, tier in plan:
+            for s, tier, how in self._tier_plan(set(), client):
                 t0 = time.monotonic()
-                if tier == "peer":
-                    if self._assemble_peer(s, peer_client) is None:
-                        continue
-                elif tier == "durable":
-                    if not self._copy_from_durable(s):
-                        continue
+                if not self._land(s, tier, how):
+                    continue
                 out = self._try_candidates(
                     template, [s], False, tier, last_exc, bad,
                     land_s=time.monotonic() - t0,
@@ -812,14 +918,208 @@ class CheckpointManager:
                     self._purge(bad, shared=False)
                     bad[:] = []
         finally:
-            if peer_client is not None:
+            if client is not None:
                 try:
-                    peer_client.close()
+                    client.close()
                 except Exception:  # noqa: BLE001
                     pass
         if last_exc[0] is not None:
             raise last_exc[0]
         return template, None
+
+    # -- restore of a sharded state --------------------------------------
+
+    def _restore_sharded(self, template) -> Tuple[Any, Optional[TrainStatus]]:
+        """The ladder for a sharded template, whose load is collective: no
+        rank may wait in it on a peer that holds another step. So the ranks
+        first agree on the newest step every one of them can make readable
+        (its pod's local dir, the peer replicas, the durable tier, freshness
+        first and the cheapest tier for it), land it, check that every rank
+        did, then load it together; a failed landing or load (torn file,
+        fingerprint) drops that step for all and the walk goes on."""
+        tried: set = set()
+        last_exc: List[Optional[Exception]] = [None]
+        client = self._peer_client()
+        try:
+            while True:
+                plan: Dict[int, Tuple[str, Any]] = {}
+                for s, tier, how in self._tier_plan(tried, client):
+                    plan.setdefault(s, (tier, how))
+                common = set.intersection(*(set(p) for p in _gather(
+                    sorted(plan))))
+                if not common:
+                    break
+                step = max(common)
+                tier, how = plan[step]
+                t0 = time.monotonic()
+                landed = self._land(step, tier, how) if _pod_leader() else True
+                if not all(_gather(landed)):
+                    tried.add(step)
+                    continue
+                bad: list = []
+                out = self._try_candidates(
+                    template, [step], False, tier, last_exc, bad,
+                    land_s=time.monotonic() - t0)
+                if out is not None:
+                    return out
+                # every rank saw the load fail: quarantine the copy (rank 0
+                # in a shared dir, the pod's leader in its local dir)
+                if self.durable_path is None:
+                    self._purge(bad, shared=True)
+                elif _pod_leader():
+                    self._purge(bad, shared=False)
+                tried.add(step)
+        finally:
+            if client is not None:
+                try:
+                    client.close()
+                except Exception:  # noqa: BLE001
+                    pass
+        if last_exc[0] is not None:
+            raise last_exc[0]
+        return template, None
+
+    def _peer_client(self):
+        """ONE store client for a whole walk of the ladder: recovery is when
+        the control plane is most likely degraded, and per-attempt 5 s
+        connects would eat the downtime budget; None without a peer tier."""
+        if not self._peer_tier_enabled():
+            return None
+        try:
+            from edl_tpu_torch.store.client import connect_store
+
+            return connect_store(os.environ.get("EDL_STORE_ENDPOINT", ""),
+                                 timeout=5.0)
+        except Exception as exc:  # noqa: BLE001 — a tier, not a gate
+            logger.warning("peer-tier peek failed: %s", exc)
+            return None
+
+    def _tier_plan(self, tried: set, client) -> List[Tuple[int, str, Any]]:
+        """``[(step, tier, how)]`` this rank can make readable in its
+        primary dir, newest step first, ties cheapest first: a complete
+        version in the primary dir; the peer replicas that cover a version
+        with the local files (``how``: the files to fetch; a sharded
+        version's files are spread over its pods); a complete durable
+        copy. A partial version (another pod's shards missing) is no
+        candidate by itself, and never torn."""
+        from edl_tpu_torch.checkpoint import replicate as _replicate
+
+        rank = {self._tier: 0, "peer": 1, "durable": 2}
+        plan = [(s, self._tier, None) for s in self.all_steps()
+                if _candidate(os.path.join(self.path, str(s)))]
+        if self.durable_path is not None:
+            if client is not None:
+                try:
+                    plan += [(s, "peer", how) for s, how in
+                             self._peer_shards(client).items()]
+                except Exception as exc:  # noqa: BLE001 — a tier, not a gate
+                    logger.warning("peer-tier peek failed: %s", exc)
+            plan += [(s, "durable", None) for s in
+                     _replicate.finalized_steps(self.durable_path)
+                     if _candidate(os.path.join(self.durable_path, str(s)))]
+        return sorted((e for e in plan if e[0] not in tried),
+                      key=lambda e: (-e[0], rank[e[1]]))
+
+    def _peer_shards(self, client) -> Dict[int, Dict[str, Any]]:
+        """The steps whose files the peer replicas (every source pod's,
+        one save's: the same metadata digest) cover together with this
+        pod's local files: ``{step: {name: (sha, [(endpoint, src)])}}``
+        for the files to fetch."""
+        from edl_tpu_torch.checkpoint import replicate as _replicate
+
+        out: Dict[int, Dict[str, Any]] = {}
+        by_step = _replicate.replicas_by_step(
+            _replicate.read_replica_manifests(
+                client, os.environ.get("EDL_JOB_ID", "")))
+        for s, replicas in sorted(by_step.items(), reverse=True):
+            local_dir = os.path.join(self.path, str(s))
+            local_sha = _replicate.file_sha(
+                os.path.join(local_dir, METADATA_TWIN))
+            saves: Dict[str, list] = {}
+            for endpoint, src, files in replicas:
+                sha = (files.get(METADATA_TWIN) or {}).get("sha")
+                if sha:
+                    saves.setdefault(sha, []).append((endpoint, src, files))
+            for sha, group in saves.items():
+                if local_sha == sha:
+                    need = version_files(local_dir)
+                else:
+                    need = self._fetched_version_files(s, group)
+                have = set(os.listdir(local_dir)) if local_sha == sha else set()
+                fetch: Dict[str, Any] = {}
+                for endpoint, src, files in group:
+                    for name, meta in files.items():
+                        # an unreadable metadata: the holders' files are
+                        # the version, torn (its load quarantines it)
+                        if (need is None or name in need) and name not in have:
+                            fetch.setdefault(name, (meta.get("sha"), []))[
+                                1].append((endpoint, src))
+                if need is None or need <= have | set(fetch):
+                    out[s] = fetch
+                    break
+        return out
+
+    def _fetched_version_files(self, step: int, group) -> Optional[set]:
+        """:func:`version_files` of a version this pod holds none of: its
+        metadata from a holder, read in a scratch dir."""
+        from edl_tpu_torch.checkpoint import replicate as _replicate
+
+        endpoint, src, files = group[0]
+        want = {METADATA_TWIN: ((files.get(METADATA_TWIN) or {}).get("sha"),
+                                [(endpoint, src)])}
+        scratch = os.path.join(self.path, ".meta-%d-%d" % (step, os.getpid()))
+        try:
+            if not _replicate.fetch_files(scratch, step, want):
+                return None
+            return version_files(scratch)
+        finally:
+            shutil.rmtree(scratch, ignore_errors=True)
+
+    def _land(self, step: int, tier: str, how) -> bool:
+        """Make version ``step`` complete in the primary dir from ``tier``:
+        nothing to do for the primary tier; the missing files from the
+        peer replicas (``how``) or from the durable copy otherwise, merged
+        with the local ones in a scratch dir that replaces the step's dir
+        by rename."""
+        if tier == self._tier:
+            return True
+        from edl_tpu_torch.checkpoint import replicate as _replicate
+
+        dst = os.path.join(self.path, str(step))
+        tmp = os.path.join(self.path, ".land-%d-%d" % (step, os.getpid()))
+        shutil.rmtree(tmp, ignore_errors=True)
+        try:
+            os.makedirs(tmp)
+            if os.path.isdir(dst):
+                for name in os.listdir(dst):
+                    if os.path.isfile(os.path.join(dst, name)):
+                        _link_or_copy(os.path.join(dst, name),
+                                      os.path.join(tmp, name))
+            if tier == "peer":
+                ok = _replicate.fetch_files(tmp, step, how)
+            else:
+                src = os.path.join(self.durable_path, str(step))
+                for name in os.listdir(src):
+                    if not os.path.exists(os.path.join(tmp, name)):
+                        shutil.copyfile(os.path.join(src, name),
+                                        os.path.join(tmp, name))
+                ok = True
+            if not (ok and _candidate(tmp)):
+                shutil.rmtree(tmp, ignore_errors=True)
+                return False
+            _fsync_dir(tmp)
+            aside = dst + ".old-%d" % os.getpid()
+            if os.path.isdir(dst):
+                os.replace(dst, aside)
+            os.replace(tmp, dst)
+            shutil.rmtree(aside, ignore_errors=True)
+            _fsync_dir(self.path)
+            return True
+        except OSError as exc:
+            logger.warning("landing step %d from the %s tier failed: %s",
+                           step, tier, exc)
+            shutil.rmtree(tmp, ignore_errors=True)
+            return False
 
     def _try_candidates(
         self, template, candidates, pinned: bool, tier: str, last_exc, bad,
@@ -882,8 +1182,9 @@ class CheckpointManager:
         older version than rank 0's (or none). When the ranks' restored
         steps differ, rank 0's restored state (every tensor of the DCP
         view, loaded back like a restore) and status go to every rank;
-        the returned status is rank 0's."""
-        if not _joined() or dist.get_world_size() == 1:
+        the returned status is rank 0's. A sharded template needs nothing:
+        its ranks agreed on the step before their collective load."""
+        if not _joined() or dist.get_world_size() == 1 or _sharded(template):
             return status
         mine = int(status.step) if status is not None else -1
         steps: List[Any] = [None] * dist.get_world_size()
@@ -926,41 +1227,6 @@ class CheckpointManager:
             and bool(os.environ.get("EDL_STORE_ENDPOINT"))
             and bool(os.environ.get("EDL_JOB_ID"))
         )
-
-    def _assemble_peer(
-        self, step: Optional[int] = None, client=None
-    ) -> Optional[int]:
-        from edl_tpu_torch.checkpoint import replicate as _replicate
-
-        try:
-            return _replicate.assemble_from_peers(
-                self.path,
-                client=client,
-                endpoint=os.environ.get("EDL_STORE_ENDPOINT", ""),
-                job_id=os.environ.get("EDL_JOB_ID", ""),
-                step=step,
-            )
-        except Exception as exc:  # noqa: BLE001 — a tier, never a gate
-            logger.warning("peer-tier assembly failed: %s", exc)
-            return None
-
-    def _copy_from_durable(self, s: int) -> bool:
-        """Land durable version ``s`` in the local tier (tmp dir + atomic
-        rename), so one loader serves every tier."""
-        src = os.path.join(self.durable_path, str(s))
-        dst = os.path.join(self.path, str(s))
-        if os.path.isdir(dst):
-            return True
-        tmp = os.path.join(self.path, ".durable-%d-%d" % (s, os.getpid()))
-        try:
-            shutil.rmtree(tmp, ignore_errors=True)
-            shutil.copytree(src, tmp)
-            os.replace(tmp, dst)
-            return True
-        except OSError as exc:
-            logger.warning("durable-tier copy of step %d failed: %s", s, exc)
-            shutil.rmtree(tmp, ignore_errors=True)
-            return False
 
     def _purge(self, bad_steps, shared: bool) -> None:
         """QUARANTINE versions that failed to restore (rename the step dir

@@ -1,7 +1,15 @@
 """Peer-replicated checkpoint shards: shared-FS-free recovery tiers.
 
-The port's copy of ``edl_tpu/checkpoint/replicate.py``: the code
-differs only in its imports. The store keyspaces, the ``ckpt_push`` /
+The port's copy of ``edl_tpu/checkpoint/replicate.py``. The code differs
+in its imports and, for sharded versions (each pod holds its ranks' part
+of a version), in three places: :func:`replicas_by_step` and
+:func:`fetch_files` take the union of every source pod's replicas of a
+step (the manager's ladder reads them in place of the JAX module's
+``peer_complete_steps``, and :func:`assemble_from_peers` fetches through
+:func:`fetch_files`), the holder drops a departed source's replica only
+once a live one is strictly newer (at the same step a live source holds
+the other parts), and the durable mirror adds a pod's files to a step
+dir another pod mirrored first. The store keyspaces, the ``ckpt_push`` /
 ``ckpt_fetch`` payloads, ``.manifest.json``, the fault points, the
 ``edl_ckpt_*`` metrics and the knobs are the JAX package's, so a port pod
 and a JAX pod hold and fetch each other's replicas. A port version's
@@ -363,10 +371,13 @@ class ReplicaServer:
                 steps.sort()
                 drop.extend((src, s) for s in steps[: -self._keep])
                 if src not in live and newest_live is not None:
+                    # strictly newer: at the same step a live source may
+                    # hold the other shards of the same version (a
+                    # sharded save leaves every pod a part of it)
                     drop.extend(
                         (src, s)
                         for s in steps[-self._keep:]
-                        if s <= newest_live
+                        if s < newest_live
                     )
             for key in set(drop):
                 self._held.pop(key, None)
@@ -951,6 +962,19 @@ class Replicator:
                 return
         dst = os.path.join(self.durable_path, str(step))
         if os.path.isdir(dst):
+            # another pod mirrored its part of a sharded version first:
+            # add the files it lacks, each by rename
+            try:
+                for rel in manifest:
+                    out = os.path.join(dst, rel)
+                    if not os.path.exists(out):
+                        with open(os.path.join(step_dir, rel), "rb") as fh:
+                            _write_shard(dst, rel, fh.read())
+                _fsync_dir(dst)
+            except OSError as exc:
+                logger.warning("durable mirror of step %d failed: %s",
+                               step, exc)
+                return
             with self._mu:
                 self._mirrored = max(self._mirrored, step)
             return
@@ -1082,6 +1106,87 @@ def _candidates_from_manifests(
     ]
 
 
+def replicas_by_step(
+    manifests: Dict[str, Dict],
+) -> Dict[int, List[Tuple[str, str, Dict[str, Dict]]]]:
+    """``{step: [(endpoint, src, files), ...]}`` over every holder's
+    complete replicas, every source pod: a sharded version's files are
+    spread over the pods that saved it, so a restore takes their union."""
+    out: Dict[int, List[Tuple[str, str, Dict[str, Dict]]]] = {}
+    for step, src, holders in _candidates_from_manifests(manifests):
+        for endpoint, files in holders:
+            out.setdefault(step, []).append((endpoint, src, files))
+    return out
+
+
+def file_sha(path: str) -> Optional[str]:
+    """The sha256 of a file, None when it cannot be read."""
+    try:
+        return _digest_file(path)
+    except OSError:
+        return None
+
+
+def fetch_files(
+    into_dir: str, step: int,
+    want: Dict[str, Tuple[str, List[Tuple[str, str]]]],
+    budget_s: Optional[float] = None,
+) -> bool:
+    """Fetch ``want`` (``{name: (sha, [(endpoint, src), ...])}``: each
+    file's digest and the holders of it) into ``into_dir``, each file
+    digest-verified and written by rename; True when every one landed
+    within the budget (``EDL_CKPT_REPL_BUDGET``)."""
+    t0 = time.monotonic()
+    t_end = t0 + (repl_budget() if budget_s is None else float(budget_s))
+    missing = {n for n in want if _safe_relpath(n)}
+    if len(missing) != len(want):
+        return False
+    by_holder: Dict[Tuple[str, str], List[str]] = {}
+    for name, (_sha, holders) in want.items():
+        for holder in holders:
+            by_holder.setdefault(holder, []).append(name)
+    rx = 0
+    srcs = {src for _sha, holders in want.values() for _ep, src in holders}
+    label = next(iter(srcs))[:8] if len(srcs) == 1 else "%d pods" % len(srcs)
+    with obs_trace.child_span("ckpt_fetch", step=str(step), src=label):
+        for (endpoint, src), names in by_holder.items():
+            names = sorted(set(names) & missing)
+            while names and time.monotonic() <= t_end:
+                chunk, names = (names[:_PUSH_CHUNK_FILES],
+                                names[_PUSH_CHUNK_FILES:])
+                got, truncated = _fetch_chunk(
+                    endpoint, src, step, chunk,
+                    max(0.5, min(5.0, t_end - time.monotonic())))
+                if not got:
+                    break  # holder sick or gone: the next one may have it
+                names.extend(n for n in truncated if n in missing)
+                for name, data in got.items():
+                    if name not in missing:
+                        continue
+                    if _FP_FETCH.armed:
+                        try:
+                            data = _FP_FETCH.fire(data, name=name[:32])
+                        except ConnectionError:
+                            continue
+                    if hashlib.sha256(data).hexdigest() != want[name][0]:
+                        logger.warning("ckpt fetch: digest mismatch for %s",
+                                       name[:48])
+                        continue
+                    if _write_shard(into_dir, name, data):
+                        missing.discard(name)
+                        rx += len(data)
+            if not missing:
+                break
+    _M_BYTES.inc(rx, dir="rx")
+    obs_events.record(
+        "ckpt_peer_fetch", fsync=True, step=step,
+        outcome="incomplete" if missing else "ok", bytes=rx,
+        shards=len(want) - len(missing), want=len(want),
+        dur=round(time.monotonic() - t0, 3),
+    )
+    return not missing
+
+
 def _fetch_chunk(
     endpoint: str, src: str, step: int, names: List[str], timeout: float
 ) -> Tuple[Dict[str, bytes], List[str]]:
@@ -1104,43 +1209,6 @@ def _fetch_chunk(
         for n, d in (resp.get("entries") or {}).items()
         if isinstance(d, (bytes, bytearray))
     }, [str(n) for n in (resp.get("truncated") or ())]
-
-
-def peer_complete_steps(
-    client=None, endpoint: str = "", job_id: str = "",
-) -> List[int]:
-    """Steps some holder advertises a COMPLETE replica of, newest
-    first — the peek the restore ladder orders tiers by (freshness
-    beats tier preference: a stale peer replica must not shadow a
-    newer durable version)."""
-    owns = False
-    if client is None:
-        if not endpoint:
-            return []
-        try:
-            from edl_tpu_torch.store.client import connect_store
-
-            client = connect_store(endpoint, timeout=5.0)
-            owns = True
-        except Exception as exc:  # noqa: BLE001
-            logger.debug("replica peek: no store (%s)", exc)
-            return []
-    try:
-        return sorted(
-            {
-                step
-                for step, _src, _holders in _candidates_from_manifests(
-                    read_replica_manifests(client, job_id)
-                )
-            },
-            reverse=True,
-        )
-    finally:
-        if owns:
-            try:
-                client.close()
-            except Exception:  # noqa: BLE001
-                pass
 
 
 def assemble_from_peers(
@@ -1212,73 +1280,31 @@ def _assemble_step(
 ) -> Optional[int]:
     # the union manifest: any holder's file set for a complete replica
     # is the full set, but a partially-reachable fleet may need several
-    wanted: Dict[str, Dict] = {}
-    for _endpoint, files in holders:
+    want: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {}
+    for endpoint, files in holders:
         for name, meta in files.items():
             if _safe_relpath(str(name)):
-                wanted.setdefault(str(name), meta)
-    if not wanted:
+                want.setdefault(str(name), (meta.get("sha"), []))[1].append(
+                    (endpoint, src))
+    if not want:
         return None
     os.makedirs(into_dir, exist_ok=True)
     tmp = os.path.join(into_dir, ".peer-%d-%d" % (step, os.getpid()))
     shutil.rmtree(tmp, ignore_errors=True)
     t0 = time.monotonic()
-    missing = set(wanted)
-    rx = 0
-    bad = 0
-    # restage-trace segment: the peer fetch is one hop of the restore
-    # ladder on the restage critical path
-    with obs_trace.child_span("ckpt_fetch", step=str(step), src=src[:8]):
-        try:
-            for endpoint, files in holders:
-                names = sorted(missing & set(files))
-                while names and time.monotonic() <= t_end:
-                    chunk, names = names[:_PUSH_CHUNK_FILES], names[_PUSH_CHUNK_FILES:]
-                    got, truncated = _fetch_chunk(
-                        endpoint, src, step, chunk,
-                        max(0.5, min(5.0, t_end - time.monotonic())),
-                    )
-                    if not got:
-                        break  # holder sick/gone: try the next one
-                    names.extend(truncated)
-                    for name, data in got.items():
-                        if name not in missing:
-                            continue
-                        if _FP_FETCH.armed:
-                            try:
-                                data = _FP_FETCH.fire(data, name=name[:32])
-                            except ConnectionError:
-                                bad += 1
-                                continue
-                        sha = hashlib.sha256(data).hexdigest()
-                        if sha != wanted[name].get("sha"):
-                            bad += 1
-                            logger.warning(
-                                "ckpt assembly: digest mismatch for %s; "
-                                "shard dropped", name[:48],
-                            )
-                            continue
-                        if _write_shard(tmp, name, data):
-                            missing.discard(name)
-                            rx += len(data)
-                if not missing:
-                    break
-        except Exception as exc:  # noqa: BLE001 — assembly is a tier, not a gate
-            logger.warning("ckpt assembly failed (%s); trying next tier", exc)
-    _M_BYTES.inc(rx, dir="rx")
-    if missing:
+    try:
+        ok = fetch_files(tmp, step, want, max(0.0, t_end - t0))
+    except Exception as exc:  # noqa: BLE001 — assembly is a tier, not a gate
+        logger.warning("ckpt assembly failed (%s); trying next tier", exc)
+        ok = False
+    if not ok:
         # partial quorum: shards are unrecoverable from the live holders
         # — abandon; the durable tier owns this case
         logger.warning(
-            "ckpt assembly of step %d incomplete (%d/%d shards, %d bad); "
-            "degrading to the durable tier",
-            step, len(wanted) - len(missing), len(wanted), bad,
+            "ckpt assembly of step %d incomplete; degrading to the durable "
+            "tier", step,
         )
         shutil.rmtree(tmp, ignore_errors=True)
-        obs_events.record(
-            "ckpt_peer_fetch", fsync=True, step=step, outcome="incomplete",
-            shards=len(wanted) - len(missing), want=len(wanted), bad=bad,
-        )
         return None
     _fsync_dir(tmp)
     dst = os.path.join(into_dir, str(step))
@@ -1289,12 +1315,8 @@ def _assemble_step(
         shutil.rmtree(tmp, ignore_errors=True)
         return None
     _fsync_dir(into_dir)
-    obs_events.record(
-        "ckpt_peer_fetch", fsync=True, step=step, outcome="ok",
-        bytes=rx, dur=round(time.monotonic() - t0, 3),
-    )
     logger.info(
-        "assembled checkpoint step %d from peer replicas (%d shards, "
-        "%d bytes, %.2fs)", step, len(wanted), rx, time.monotonic() - t0,
+        "assembled checkpoint step %d from peer replicas (%d shards, %.2fs)",
+        step, len(want), time.monotonic() - t0,
     )
     return step

@@ -6,8 +6,10 @@ env, build, load the checkpoint, the epoch loop, the per-epoch save).
 Each (re)start joins the stage from the launcher's env, re-resolves the
 learning rate for the stage's world size (``linear_scaled_lr`` through the
 ``AdjustRegistry``), builds the model from one seed on every rank, places
-it on a ``{"dp": -1, "fsdp": 1}`` mesh (an fsdp axis of size 1 keeps
-every tensor whole), wraps it for data parallelism, restores the newest
+it on a ``{"dp": -1, "fsdp": 1}`` mesh and wraps it for data parallelism
+(the JAX example's ``shard_params_fsdp`` over an fsdp axis of size 1
+keeps every tensor whole: DDP is that placement here, FSDP is
+``ElasticTrainer(fsdp=True)``), restores the newest
 checkpoint (parameters, batch-norm buffers and the optimizer's momentum,
 at any world size) and trains SGD with Nesterov momentum from the next
 epoch. Batch norm is stage-wide: every BN reduces its statistics over the
@@ -51,7 +53,6 @@ from edl_tpu_torch.parallel import (
     batch_sharding,
     data_parallel,
     make_mesh,
-    shard_params_fsdp,
 )
 from edl_tpu_torch.train import (
     create_state,
@@ -120,8 +121,7 @@ def main(argv=None) -> None:
             ResNet50_vd(num_classes=1000), 0,
             sgd(lr, momentum=0.9, nesterov=True), device=mesh.device,
         )
-        state.apply_fn = data_parallel(
-            shard_params_fsdp(mesh, state.apply_fn), mesh)
+        state.apply_fn = data_parallel(state.apply_fn, mesh)
         state, status = mngr.restore(state)
         start_epoch = status.next_epoch() if status else 0
         if env.is_rank0 and status:

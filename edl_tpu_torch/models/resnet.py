@@ -43,7 +43,9 @@ step equals a world-1 step on the concatenated batch. Here each rank holds
 its own rows: in training, when the stage's process group has more than
 one rank (resolved at every forward: a hot restage tears the group down
 and joins a new one), every BN all-reduces its per-channel ``[sum, sum
-of squares, count]`` over the group with the differentiable
+of squares, count]`` over the group that holds each row once (the whole
+stage; its ``dp`` sub-group on a mesh with ``fsdp`` > 1, whose ranks
+share their rows, :func:`stage_group`) with the differentiable
 ``torch.distributed.nn.functional.all_reduce`` and normalises with the
 global mean and ``E[x^2] - E[x]^2`` variance (flax's fast variance).
 The normalisation and its backward are the native batch-norm kernels in
@@ -64,10 +66,11 @@ import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from edl_tpu_torch.parallel.mesh import batch_stats_group
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -86,11 +89,11 @@ def _updates_stats() -> bool:
 
 def stage_group():
     """The group that batch statistics are reduced over: the stage's
-    process group when it has more than one rank, else None."""
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
-        return dist.group.WORLD
-    return None
+    process group when it has more than one rank; on a mesh with ``fsdp``
+    > 1 its ``dp`` sub-group, which holds each row of the global batch
+    once (the ranks of one ``fsdp`` group hold the same rows); None when
+    that is one rank."""
+    return batch_stats_group()
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -152,12 +155,16 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, pad = _pad_same(x, self.size, self.stride)
-        return F.conv2d(x, self.kernel.to(x.dtype), None, self.stride, pad,
-                        groups=self.groups)
+        # channels-last whatever the master's layout (FSDP2 gathers it
+        # contiguous)
+        kernel = self.kernel.to(x.dtype, memory_format=torch.channels_last)
+        return F.conv2d(x, kernel, None, self.stride, pad, groups=self.groups)
 
     @torch.no_grad()
     def init_weights(self, generator) -> None:
-        _trunc_normal_(self.kernel, self.kernel[0].numel(), generator)
+        # fan-in from the shape: an index of a sharded kernel would gather
+        _trunc_normal_(self.kernel, math.prod(self.kernel.shape[1:]),
+                       generator)
 
 
 class Dense(nn.Module):

@@ -172,8 +172,11 @@ class MemoryPlan:
 
 
 def _tensor_bytes(tree) -> float:
+    """Bytes this rank holds: a ``DTensor`` (FSDP2's sharded parameters
+    and optimizer state) counts its local shard only."""
     if torch.is_tensor(tree):
-        return float(tree.numel() * tree.element_size())
+        local = getattr(tree, "_local_tensor", tree)
+        return float(local.numel() * local.element_size())
     if isinstance(tree, dict):
         return sum(_tensor_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
@@ -183,7 +186,9 @@ def _tensor_bytes(tree) -> float:
 
 def state_bytes(state) -> float:
     """Bytes of a ``TrainState``'s parameters and optimizer state (or of
-    a ``name -> tensor`` dict): the plan's ``argument``."""
+    a ``name -> tensor`` dict) on this rank: the plan's ``argument``.
+    Under FSDP a rank holds its shards, so a plan published at fsdp 2
+    shows about half the state bytes of fsdp 1."""
     params = getattr(state, "params", state)
     total = _tensor_bytes(params)
     opt = getattr(getattr(state, "opt_state", None), "optimizer", None)

@@ -116,14 +116,63 @@ def _zero(device) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=device)
 
 
+def _split_shards(tensors: List[torch.Tensor]):
+    """``(whole, shards, group)``: the plain tensors, the local shards of
+    the ``DTensor`` ones (FSDP2's parameters, gradients and optimizer
+    state) and the group their shards are spread over (the mesh dim they
+    are ``Shard`` on; replicated dims hold copies and are not summed)."""
+    from torch.distributed.tensor import DTensor
+
+    whole, shards, group = [], [], None
+    for t in tensors:
+        if not isinstance(t, DTensor):
+            whole.append(t)
+            continue
+        dims = [i for i, pl in enumerate(t.placements) if pl.is_shard()]
+        if not dims:
+            whole.append(t.to_local())
+            continue
+        if group is None:
+            group = t.device_mesh.get_group(dims[0])
+        shards.append(t.to_local())
+    return whole, shards, group
+
+
+def _sum_over(local: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+
+    dist.all_reduce(local, group=group)
+    return local
+
+
 def global_norm(tensors: List[torch.Tensor], device=None) -> torch.Tensor:
     """The global L2 norm of ``tensors`` as a 0-d fp32 tensor: one
     ``_foreach_norm`` (fp32 accumulation) and the norm of the per-tensor
-    norms."""
+    norms. Over ``DTensor`` shards each rank's sum of squares is summed
+    over the shards' group (one all-reduce: collective) before the root,
+    so every rank gets the norm of the whole tensors."""
     if not tensors:
         return _zero(device)
-    norms = torch._foreach_norm(tensors, 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    whole, shards, group = _split_shards(tensors)
+    if not shards:
+        norms = torch._foreach_norm(whole, 2, dtype=torch.float32)
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(torch._foreach_norm(shards, 2, dtype=torch.float32)
+                     ).square().sum()
+    sq = _sum_over(sq, group)
+    if whole:
+        sq = sq + torch.stack(torch._foreach_norm(
+            whole, 2, dtype=torch.float32)).square().sum()
+    return sq.sqrt()
+
+
+def _count_nonfinite(tensors: List[torch.Tensor]) -> torch.Tensor:
+    marks = torch._foreach_mul(tensors, 0.0)
+    torch._foreach_add_(marks, 1.0)
+    torch._foreach_sign_(marks)
+    torch._foreach_sub_(marks, 1.0)
+    counts = torch._foreach_norm(marks, 1, dtype=torch.float32)
+    return torch.stack(counts).sum()
 
 
 def nonfinite_count(tensors: List[torch.Tensor], device=None) -> torch.Tensor:
@@ -131,15 +180,15 @@ def nonfinite_count(tensors: List[torch.Tensor], device=None) -> torch.Tensor:
     in five multi-tensor passes: ``x*0 + 1`` is 1 where ``x`` is finite
     and NaN elsewhere; its sign is 1 or 0 (``sign`` compares, and NaN
     compares false); less 1 and summed by an L1 norm, minus the count.
-    The count per tensor is exact below 2**24."""
+    The count per tensor is exact below 2**24. ``DTensor`` shards'
+    counts are summed over their group, as in :func:`global_norm`."""
     if not tensors:
         return _zero(device)
-    marks = torch._foreach_mul(tensors, 0.0)
-    torch._foreach_add_(marks, 1.0)
-    torch._foreach_sign_(marks)
-    torch._foreach_sub_(marks, 1.0)
-    counts = torch._foreach_norm(marks, 1, dtype=torch.float32)
-    return torch.stack(counts).sum()
+    whole, shards, group = _split_shards(tensors)
+    if not shards:
+        return _count_nonfinite(whole)
+    count = _sum_over(_count_nonfinite(shards), group)
+    return count + _count_nonfinite(whole) if whole else count
 
 
 def _fp32(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -221,19 +270,38 @@ def host_param_norm(state) -> float:
     tensor's sum of squares is taken in float64 where it lives, and the
     sums are added on the host in parameter-name order. The save-time and
     restore-time sides run the same math, so a match is exact up to
-    float64 rounding.
+    float64 rounding. A ``DTensor``'s sum is its shards' sums, added over
+    their group in one float64 all-reduce for all of them (collective:
+    every rank of a sharded state calls this at the same point).
 
     ``state`` is a ``TrainState``, a module or a ``name -> tensor`` dict;
     a data-parallel wrapper's ``module.`` prefix does not change the
     order."""
+    from torch.distributed.tensor import DTensor
+
     params = getattr(state, "params", state)
     if isinstance(params, torch.nn.Module):
         params = dict(params.named_parameters())
+    items = [p.detach() for _name, p in sorted(params.items())
+             if torch.is_tensor(p) and p.is_floating_point()]
+    sums = [torch.sum(torch.square(p.to_local().double()))
+            if isinstance(p, DTensor) else
+            float(torch.sum(torch.square(p.double()))) for p in items]
+    sharded = [i for i, p in enumerate(items) if isinstance(p, DTensor)]
+    if sharded:
+        _whole, _shards, group = _split_shards([items[sharded[0]]])
+        local = torch.stack([sums[i] for i in sharded])
+        if group is not None:
+            import torch.distributed as dist
+
+            if dist.get_backend(group) == "gloo":
+                local = local.cpu()  # float64 through the host
+            local = _sum_over(local, group)
+        for i, v in zip(sharded, local.tolist()):
+            sums[i] = v
     total = 0.0
-    for _name, p in sorted(params.items()):
-        if not (torch.is_tensor(p) and p.is_floating_point()):
-            continue
-        total += float(torch.sum(torch.square(p.detach().double())))
+    for v in sums:
+        total += v
     return math.sqrt(total)
 
 

@@ -1,4 +1,5 @@
-"""Parallelism: the data-parallel subset of ``edl_tpu.parallel``."""
+"""Parallelism: data parallelism and FSDP, the subset of ``edl_tpu.parallel``
+the elastic trainer uses."""
 
 from edl_tpu_torch.parallel.mesh import (
     Mesh,
@@ -6,10 +7,12 @@ from edl_tpu_torch.parallel.mesh import (
     data_parallel,
     device_put_global,
     device_put_local_rows,
+    is_fsdp,
     make_mesh,
     replicated,
     shard_batch,
     shard_params_fsdp,
+    sharded_init,
 )
 
 __all__ = [
@@ -18,8 +21,10 @@ __all__ = [
     "data_parallel",
     "device_put_global",
     "device_put_local_rows",
+    "is_fsdp",
     "make_mesh",
     "replicated",
     "shard_batch",
     "shard_params_fsdp",
+    "sharded_init",
 ]

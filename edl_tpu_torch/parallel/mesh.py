@@ -1,32 +1,42 @@
-"""The data-parallel mesh: the port of the subset of
-``edl_tpu/parallel/mesh.py`` that ``ElasticTrainer`` uses.
+"""The stage's mesh: the port of the subset of ``edl_tpu/parallel/mesh.py``
+that ``ElasticTrainer`` uses, data parallelism and FSDP.
 
 The JAX package shards over a ``jax.sharding.Mesh`` and lets XLA insert the
-gradient all-reduce. Here the mesh is the stage's process group: one
-``dp`` axis over the world's ranks, one device per process
-(``init`` selected it), and :func:`data_parallel` wraps the model in
-``DistributedDataParallel``, which broadcasts rank 0's parameters and
-averages gradients over the ranks. With equal local batches that average
-is the gradient of the mean loss over the concatenated global batch, so a
-step at world N equals one step on the global batch at world 1.
+collectives. Here the mesh is the stage's process group, one device per
+process (``init`` selected it), laid out ``dp``-major: rank ``r`` holds
+``dp`` index ``r // fsdp`` and ``fsdp`` index ``r % fsdp``.
+
+- Data parallelism: :func:`data_parallel` wraps the model in
+  ``DistributedDataParallel``, which broadcasts rank 0's parameters and
+  averages gradients over the ranks. With equal local batches that
+  average is the gradient of the mean loss over the concatenated global
+  batch, so a step at world N equals one step on the global batch at
+  world 1.
+- FSDP: :func:`shard_params_fsdp` applies FSDP2's ``fully_shard`` over a
+  ``DeviceMesh`` of the stage (:attr:`Mesh.device_mesh`, axes ``("dp",
+  "fsdp")``): HSDP on the 2-D mesh (replicated over ``dp``, sharded over
+  ``fsdp``), plain FSDP on the 1-D ``fsdp`` mesh when ``dp`` is 1. The
+  parameters become ``DTensor`` shards, and the optimizer built over
+  them keeps its state sharded alike; FSDP2's reduce-scatter over
+  ``fsdp`` and all-reduce over ``dp`` average the gradients, so the
+  module takes no DDP wrap.
 
 Placement keeps the JAX semantics: :func:`device_put_global` takes a value
 that is the same on every rank (parameters), :func:`device_put_local_rows`
-and :func:`shard_batch` take this rank's rows of the batch (the global
-batch is the ranks' rows concatenated in rank order).
+and :func:`shard_batch` take this rank's rows of the batch. Batches shard
+over ``dp`` only (``batch_sharding`` is ``P("dp")``): the ranks of one
+``fsdp`` group pass the same rows, and the global batch is the ``dp``
+groups' rows concatenated in ``dp`` order.
 
-Only ``dp`` is served, beside axes of size 1. An ``fsdp`` axis of size 1
-is the flagship ResNet job's mesh (``{"dp": -1, "fsdp": 1}``), where
-:func:`shard_params_fsdp` places everything whole, as the JAX function
-does there; an ``fsdp`` axis larger than 1 waits for ROADMAP item 5 (M5,
-FSDP2); ``tp``/``sp``/``ep`` for ROADMAP M12/M14/M15.
+``tp``/``sp``/``ep`` wait for ROADMAP M12/M14/M15; axes of size 1 are
+kept in ``Mesh.shape``.
 """
 
 from __future__ import annotations
 
 import inspect
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,35 +45,104 @@ import torch.distributed as dist
 from edl_tpu_torch.utils.device import resolve_device
 
 _NOT_PORTED = {
-    "fsdp": "ROADMAP item 5 (M5, FSDP2)",
     "tp": "ROADMAP M12",
     "sp": "ROADMAP M14",
     "ep": "ROADMAP M15",
 }
 
+# the stage's DeviceMesh, built once per process group (its sub-groups are
+# collective to create) and dropped with the group
+# (train.context._teardown_group): (key, DeviceMesh)
+_stage_mesh: Optional[Tuple[tuple, object]] = None
 
-def _fsdp_not_ported():
-    return NotImplementedError(
-        "fsdp (sharded parameters and optimizer state) waits for ROADMAP "
-        "item 5 (M5, FSDP2); the port serves data parallelism only"
-    )
+
+def _joined() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def _default_group():
+    from torch.distributed import distributed_c10d
+
+    return distributed_c10d._get_default_group()
+
+
+def forget_stage_mesh() -> None:
+    """Drop the stage's DeviceMesh; its groups go with the default group
+    they were split from (``train.context._teardown_group``)."""
+    global _stage_mesh
+    _stage_mesh = None
+
+
+def _current_mesh(dp: int, fsdp: int, device_type: str):
+    """The stage's DeviceMesh over ``(dp, fsdp)``, built on first use
+    (collective: every rank asks at the same point)."""
+    global _stage_mesh
+    from torch.distributed.device_mesh import init_device_mesh
+
+    key = (id(_default_group()), device_type, dp, fsdp)
+    if _stage_mesh is None or _stage_mesh[0] != key:
+        _stage_mesh = (key, init_device_mesh(
+            device_type, (dp, fsdp), mesh_dim_names=("dp", "fsdp")))
+    return _stage_mesh[1]
 
 
 class Mesh:
-    """One ``dp`` axis over the stage's ranks, and the axes of size 1 the
-    caller named (``ones``); ``device`` is this rank's."""
+    """The stage's axes (``shape``: ``dp``, ``fsdp`` and the axes of size
+    1 the caller named), this rank's place on them and its ``device``."""
 
-    def __init__(self, size: int, rank: int, device: torch.device,
-                 ones=()) -> None:
-        self.shape = {"dp": size, **{name: 1 for name in ones}}
+    def __init__(self, shape: Dict[str, int], rank: int,
+                 device: torch.device) -> None:
+        self.shape = dict(shape)
         self.axis_names = tuple(self.shape)
-        self.size = size
+        self.size = math.prod(self.shape.values())
         self.rank = rank
         self.device = device
 
+    @property
+    def dp_size(self) -> int:
+        return self.shape.get("dp", 1)
+
+    @property
+    def fsdp_size(self) -> int:
+        return self.shape.get("fsdp", 1)
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's ``dp`` index: which rows of the global batch it
+        holds (the ranks of one ``fsdp`` group hold the same ones)."""
+        return self.rank // self.fsdp_size
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.rank % self.fsdp_size
+
+    @property
+    def device_mesh(self):
+        """The ``("dp", "fsdp")`` DeviceMesh of the stage's process group
+        (None without one); its ``"dp"`` and ``"fsdp"`` sub-meshes carry
+        their own groups. Built at the first use in a stage, collectively."""
+        if not _joined():
+            return None
+        return _current_mesh(self.dp_size, self.fsdp_size, self.device.type)
+
+    def group(self, axis: str):
+        """The process group over ``axis`` that holds this rank (None
+        without a process group)."""
+        dm = self.device_mesh
+        return None if dm is None else dm.get_group(axis)
+
+    @property
+    def dp_group(self):
+        return self.group("dp")
+
+    @property
+    def fsdp_group(self):
+        return self.group("fsdp")
+
     def __repr__(self) -> str:
-        return "Mesh(dp=%d, rank=%d, device=%s)" % (
-            self.size, self.rank, self.device)
+        return "Mesh(%s, rank=%d, device=%s)" % (
+            ", ".join("%s=%d" % kv for kv in self.shape.items()),
+            self.rank, self.device)
 
 
 class Sharding:
@@ -80,35 +159,60 @@ class Sharding:
 
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
-    """The stage's mesh: ``dp`` over every rank of the process group (one
-    rank and no group in a one-worker stage). ``axes`` may name ``dp``
-    (-1 fills) and axes of size 1; any other axis raises, naming the slice
-    or ROADMAP item it waits for. ``device`` is the card unless the caller
-    names the CPU; on the card, the device ``init`` selected."""
-    joined = dist.is_available() and dist.is_initialized()
+    """The stage's mesh over every rank of the process group (one rank and
+    no group in a one-worker stage). ``axes`` may name ``dp`` and
+    ``fsdp`` at any sizes whose product is the world, one of them ``-1``
+    (it fills), and other axes at size 1; a larger ``tp``/``sp``/``ep``
+    raises, naming the ROADMAP item it waits for. ``device`` is the card
+    unless the caller names the CPU; on the card, the device ``init``
+    selected. At ``fsdp`` > 1 the DeviceMesh and its sub-groups are built
+    now (collective), so that batch norm finds its ``dp`` group."""
+    joined = _joined()
     world = dist.get_world_size() if joined else 1
     rank = dist.get_rank() if joined else 0
     axes = dict(axes or {"dp": world})
+    fills = [k for k, v in axes.items() if v == -1]
+    if len(fills) > 1:
+        raise ValueError("only one axis may be -1, got %r" % fills)
+    fixed = math.prod(v for v in axes.values() if v != -1)
+    if fills:
+        if world % fixed:
+            raise ValueError("cannot fill %r: %d ranks / %d"
+                             % (fills[0], world, fixed))
+        axes[fills[0]] = world // fixed
     for name, size in axes.items():
-        if name == "dp" or size == 1:
+        if name in ("dp", "fsdp") or size == 1:
             continue
-        if name == "fsdp":
-            raise _fsdp_not_ported()
         raise NotImplementedError(
             "mesh axis %r waits for %s of the port"
             % (name, _NOT_PORTED.get(name, "a later slice"))
         )
-    fixed = math.prod(v for v in axes.values() if v != -1)
-    if axes.get("dp", 1) == -1:
-        if world % fixed:
-            raise ValueError("cannot fill 'dp': %d ranks / %d" % (world, fixed))
-        axes["dp"] = world // fixed
     if math.prod(axes.values()) != world:
         raise ValueError("axes %r do not cover %d ranks" % (axes, world))
+    axes.setdefault("dp", 1)
+    axes = {"dp": axes.pop("dp"), **axes}  # dp-major, as the layout
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return Mesh(world, rank, dev, ones=[k for k in axes if k != "dp"])
+    mesh = Mesh(axes, rank, dev)
+    if joined and mesh.fsdp_size > 1:
+        mesh.device_mesh  # noqa: B018 — build the sub-groups now
+    return mesh
+
+
+def batch_stats_group():
+    """The group that batch statistics reduce over: every rank of the
+    stage, except on a mesh with ``fsdp`` > 1, where the ranks of one
+    ``fsdp`` group hold the same rows and the ``dp`` sub-group holds each
+    row once (None when it is one rank, or without a process group)."""
+    if not _joined() or dist.get_world_size() == 1:
+        return None
+    if _stage_mesh is not None and _stage_mesh[0][0] == id(_default_group()):
+        _key, dm = _stage_mesh
+        dp, fsdp = dm.shape
+        if fsdp > 1:
+            return dm.get_group("dp") if dp > 1 else None
+    return dist.group.WORLD
 
 
 def batch_sharding(mesh: Mesh, axis: str = "dp") -> Sharding:
@@ -136,7 +240,7 @@ def device_put_global(x, sharding: Sharding) -> torch.Tensor:
 
 def device_put_local_rows(x, sharding: Sharding) -> torch.Tensor:
     """Place THIS rank's rows of a batch (LOCAL-rows semantics: the global
-    batch is every rank's rows concatenated in rank order); a copy."""
+    batch is every ``dp`` group's rows concatenated in order); a copy."""
     return to_tensor(x).to(sharding.device, copy=True)
 
 
@@ -156,24 +260,155 @@ def shard_batch(mesh: Mesh, batch, axis: str = "dp"):
     return tree_map(lambda x: device_put_local_rows(x, sharding), batch)
 
 
+def _fsdp_spec(shape: Sequence[int], axis_size: int,
+               axis: str = "fsdp") -> tuple:
+    """``edl_tpu.parallel.mesh._fsdp_spec`` as a tuple: ``axis`` on the
+    largest dim that ``axis_size`` divides (the first of equal ones),
+    ``()`` (replicated) when there is none."""
+    if not shape:
+        return ()
+    order = sorted(range(len(shape)), key=lambda i: -shape[i])
+    for dim in order:
+        if shape[dim] >= axis_size and shape[dim] % axis_size == 0:
+            spec = [None] * len(shape)
+            spec[dim] = axis
+            return tuple(spec)
+    return ()
+
+
+def fsdp_placement(shape: Sequence[int], axis_size: int):
+    """FSDP2's placement of a parameter of ``shape``: ``Shard(dim)`` on the
+    dim :func:`_fsdp_spec` picks. Where the JAX spec replicates (no dim
+    divides), ``Shard(0)``: FSDP2 cannot replicate a parameter inside a
+    ``fully_shard`` group, so it shards dim 0 unevenly (padded). That is
+    the one placement that differs from the JAX package's; the values do
+    not depend on it."""
+    from torch.distributed.tensor import Shard
+
+    spec = _fsdp_spec(shape, axis_size)
+    return Shard(spec.index("fsdp") if spec else 0)
+
+
+def _wrap_units(module: torch.nn.Module):
+    """The sub-modules that get an FSDP group of their own, in module
+    order: each direct child that holds parameters and modules of its own
+    (a residual block, a transformer layer); containers are looked
+    through, since their ``forward`` never runs. The root takes what is
+    left (stems, norms, heads)."""
+    for child in module.children():
+        if isinstance(child, (torch.nn.ModuleList, torch.nn.ModuleDict)):
+            yield from _wrap_units(child)
+        elif any(True for _ in child.children()) and \
+                any(True for _ in child.parameters()):
+            yield child
+
+
 def shard_params_fsdp(mesh: Mesh, module: torch.nn.Module,
                       axis: str = "fsdp") -> torch.nn.Module:
-    """ZeRO-style sharding of ``module``'s parameters over ``axis``, at the
-    one size the port serves: 1, where every tensor stays whole on the
-    mesh's device (the JAX function's placement on an axis of size 1);
-    the module is moved in place and returned. A mesh without the axis,
-    or with it larger than 1, raises, naming ROADMAP item 5."""
-    if mesh.shape.get(axis) != 1:
-        raise _fsdp_not_ported()
-    return module.to(mesh.device)
+    """ZeRO-style sharding of ``module``'s parameters over ``axis``, in
+    place, as FSDP2 (``fully_shard`` on each wrap unit, then the root,
+    placements from :func:`fsdp_placement`); the module is returned. The
+    parameters become ``DTensor`` shards on the mesh's device. FSDP2
+    moves one wrap unit's parameters there before it splits them, so the
+    device never holds the whole model; a module on ``meta`` stays there
+    (for ``to_empty`` and an init).
+
+    Shard before the optimizer is built (``create_state`` after this):
+    one built over the whole parameters would hold tensors the module no
+    longer has. Applied whenever a process group exists, a joined group
+    at fsdp 1 included. A one-worker stage without a group keeps the module whole
+    on the mesh's device: the JAX function's placement on an axis of
+    size 1. A mesh without the axis raises: it was not built for FSDP
+    (ROADMAP item 5 ported ``make_mesh({"dp": d, "fsdp": f})``)."""
+    if axis not in mesh.shape:
+        raise NotImplementedError(
+            "shard_params_fsdp shards over the mesh's %r axis (ROADMAP "
+            "item 5, M5: build the mesh with make_mesh({'dp': d, %r: f})); "
+            "this mesh has axes %r" % (axis, axis, mesh.axis_names))
+    if not _joined():
+        return module.to(mesh.device)
+    from torch.distributed.fsdp import fully_shard
+
+    dm = mesh.device_mesh
+    fsdp_mesh = dm if mesh.dp_size > 1 else dm[axis]
+    size = mesh.shape[axis]
+
+    def place(param):
+        return fsdp_placement(param.shape, size)
+
+    with torch.no_grad():
+        for param in module.parameters():
+            if not param.is_contiguous():
+                # FSDP2 shards contiguous parameters only (a channels-last
+                # conv kernel; the conv lays its cast copy out again)
+                param.data = param.data.contiguous()
+    for unit in list(_wrap_units(module)):
+        fully_shard(unit, mesh=fsdp_mesh, shard_placement_fn=place)
+    fully_shard(module, mesh=fsdp_mesh, shard_placement_fn=place)
+    return module
+
+
+class sharded_init:
+    """Inside this context ``copy_``, ``fill_`` and ``zero_`` on a
+    ``DTensor`` act on this rank's shard alone, with no collective: a
+    whole source tensor is sliced to the shard's place in it. A model's
+    own ``init_weights`` (a full draw per tensor, then ``p.copy_(draw)``)
+    or a load of whole values so fills an FSDP-sharded module with the
+    values the unsharded one would get, one tensor whole at a time.
+    (DTensor's own redistribution of a whole source issues a collective,
+    which gloo does not carry for tensors on the card.)"""
+
+    def __enter__(self):
+        from torch.overrides import TorchFunctionMode
+
+        ops = (torch.Tensor.copy_, torch.Tensor.fill_, torch.Tensor.zero_)
+
+        class _Mode(TorchFunctionMode):
+            def __torch_function__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                kwargs = kwargs or {}
+                target = args[0] if args else None
+                if func not in ops or not isinstance(target, DTensor) or (
+                        func is torch.Tensor.copy_
+                        and isinstance(args[1], DTensor)):
+                    return func(*args, **kwargs)
+                local = target._local_tensor
+                if func is torch.Tensor.copy_:
+                    from torch.distributed.tensor._utils import (
+                        compute_local_shape_and_global_offset)
+
+                    shape, offset = compute_local_shape_and_global_offset(
+                        target.shape, target.device_mesh, target.placements)
+                    src = args[1][tuple(slice(o, o + n) for o, n in
+                                        zip(offset, shape))]
+                    local.copy_(src, **kwargs)
+                else:
+                    func(local, *args[1:], **kwargs)
+                return target
+
+        self._mode = _Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+
+
+def is_fsdp(module: torch.nn.Module) -> bool:
+    """True for a module ``shard_params_fsdp`` sharded (FSDP2)."""
+    from torch.distributed.fsdp import FSDPModule
+
+    return isinstance(module, FSDPModule)
 
 
 def data_parallel(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     """Wrap ``model`` for data parallelism over ``mesh``'s process group:
     ``DistributedDataParallel`` (rank 0's parameters are broadcast now;
     each backward averages the gradients over the ranks, bucketed and
-    overlapped with the backward). Without a group (a one-worker stage) it
-    returns ``model`` itself.
+    overlapped with the backward). Without a group (a one-worker stage),
+    or for a module :func:`shard_params_fsdp` sharded (FSDP2 averages its
+    gradients itself), it returns ``model`` itself.
 
     Buffers are not broadcast before each forward (DDP's
     ``forward_sync_buffers=False``, ``broadcast_buffers=False`` before
@@ -182,7 +417,7 @@ def data_parallel(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     the same checkpoint, and which stage-wide batch norm
     (:mod:`edl_tpu_torch.models.resnet`) updates from the same all-reduced
     statistics on every rank, so they stay equal without a broadcast."""
-    if not (dist.is_available() and dist.is_initialized()):
+    if not _joined() or is_fsdp(model):
         return model
     from torch.nn.parallel import DistributedDataParallel
 
@@ -191,4 +426,3 @@ def data_parallel(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
                inspect.signature(DistributedDataParallel).parameters
                else "broadcast_buffers")
     return DistributedDataParallel(model, device_ids=ids, **{no_sync: False})
-

@@ -552,12 +552,18 @@ def _teardown_group() -> str:
     pairs close their sockets; nothing waits on the peer). The
     checkpoint group goes with the default group and :func:`init` builds
     the next stage's; the trainer's checkpoint manager has finished its
-    in-flight save before this runs (its ``close`` waits)."""
+    in-flight save before this runs (its ``close`` waits). So does the
+    stage's DeviceMesh (``parallel.mesh``): its ``dp`` and ``fsdp``
+    sub-groups were built from this group and go with it, and the next
+    stage's ``make_mesh`` builds its own."""
     global _distributed_up, _ckpt_group
     import torch.distributed as dist
 
+    from edl_tpu_torch.parallel.mesh import forget_stage_mesh
+
     _distributed_up = False
     _ckpt_group = None  # destroyed with the default group below
+    forget_stage_mesh()
     if not (dist.is_available() and dist.is_initialized()):
         return "none"
     if dist.get_backend() == "nccl":

@@ -9,7 +9,9 @@ The port of ``edl_tpu/train/loop.py``. ``fit``:
     (``AdjustRegistry``, e.g. a linear-scaled lr) before building the
     optimizer — the elastic-resize contract,
   - builds the state (``create_state``), wraps the model for data
-    parallelism (rank 0's parameters broadcast, gradients averaged),
+    parallelism (rank 0's parameters broadcast, gradients averaged), or
+    with ``fsdp=True`` shards its parameters and optimizer state over the
+    mesh's ``fsdp`` axis (FSDP2, ``parallel.shard_params_fsdp``),
   - restores the latest checkpoint (keyed by names, so it loads at any
     world size) and resumes at the next epoch,
   - barriers the stage through the store, then runs the epoch loop over
@@ -59,6 +61,7 @@ from edl_tpu_torch.parallel import (
     data_parallel,
     make_mesh,
     shard_batch,
+    shard_params_fsdp,
 )
 from edl_tpu_torch.train import context as ctx
 from edl_tpu_torch.train.context import init, warm_only, worker_barrier
@@ -96,7 +99,8 @@ class _RestageRequested(Exception):
 
 def _unwrapped(module: torch.nn.Module) -> torch.nn.Module:
     """The model inside a data-parallel wrapper (DDP keeps it as
-    ``.module``), or the model itself."""
+    ``.module``), or the model itself (FSDP2 shards a module in place: it
+    is its own model)."""
     from torch.nn.parallel import DistributedDataParallel
 
     if isinstance(module, DistributedDataParallel):
@@ -144,7 +148,24 @@ class ElasticTrainer:
     when ``batch_size`` is set (packed into fixed-shape batches, ragged
     tail dropped), or ready ``(x, y)`` host batches otherwise. Epoch-seeded
     generators give the reference's ``pass_id_as_seed`` deterministic-
-    resume contract (train_with_fleet.py:458-464).
+    resume contract (train_with_fleet.py:458-464). Batches shard over
+    ``dp``: at ``fsdp`` > 1 the ranks of one ``fsdp`` group pass the same
+    rows, those of ``dp`` index ``trainer.mesh.dp_rank`` of
+    ``trainer.mesh.dp_size`` (the stage's mesh, set when ``fit`` builds
+    it).
+
+    ``fsdp=True`` shards the parameters and the optimizer state over the
+    mesh's ``fsdp`` axis (``mesh_axes`` defaults to ``{"dp": 1, "fsdp":
+    -1}`` then) with FSDP2; batch-norm running averages stay replicated.
+    The module is built on the ``meta`` device from the given one (whose
+    storage is released), sharded there, and only its shards are
+    materialised on the device, filled from the given module's values
+    (``seed=None``) or drawn by its ``init_weights`` one tensor at a
+    time: the device never holds the whole model. A stage change
+    rebuilds the sharded module and its optimizer for the new mesh
+    (``restages[i]["state"] == "rebuild"``) before the checkpoint is
+    restored into them; DCP reshards the version to the new ``fsdp``
+    size.
 
     ``seed`` initialises the model's weights (``init_weights``) at every
     stage, as the JAX trainer draws them from ``PRNGKey(seed)``;
@@ -174,11 +195,6 @@ class ElasticTrainer:
         log: bool = True,
         device="cuda",
     ) -> None:
-        if fsdp:
-            raise NotImplementedError(
-                "fsdp=True waits for ROADMAP item 5 (M5, FSDP2); the port "
-                "trains with data parallelism only"
-            )
         if init_kwargs:
             raise TypeError(
                 "init_kwargs configure a flax module's init; a torch "
@@ -187,7 +203,13 @@ class ElasticTrainer:
         self._model = model
         self._optimizer = optimizer
         self._loss = loss
-        self._mesh_axes = mesh_axes
+        self._fsdp = fsdp
+        self._mesh_axes = mesh_axes or ({"dp": 1, "fsdp": -1} if fsdp
+                                        else None)
+        # fsdp: the module on meta and the host values it is filled from
+        self._template: Optional[torch.nn.Module] = None
+        self._host: Dict[str, torch.Tensor] = {}
+        self.mesh = None  # the stage's mesh, once fit has built it
         self._ckpt_dir = ckpt_dir
         self._adjusts = adjusts
         self._apply_kwargs = apply_kwargs
@@ -336,12 +358,21 @@ class ElasticTrainer:
         that adopted the stage in-process keeps its module and optimizer
         (given this world's hyper-parameters) when a checkpoint will be
         restored into them; otherwise — a fresh process, or nothing to
-        restore — the weights are initialised and the optimizer built."""
+        restore — the weights are initialised and the optimizer built.
+        Under ``fsdp`` the state is always built anew: a kept module's
+        shards belong to the torn-down mesh."""
         kept, self._kept = self._kept, None
         t0 = time.monotonic()
         if kept is not None:
             kept.apply_fn = _unwrapped(kept.apply_fn)
-        if kept is not None and mngr is not None \
+        if self._fsdp:
+            # a kept module's shards live on the torn-down mesh: rebuilt
+            state = create_state(
+                self._sharded_module(mesh), self._seed,
+                self._make_tx(overrides), device=mesh.device,
+            )
+            how = "rebuild"
+        elif kept is not None and mngr is not None \
                 and mngr.latest_step() is not None:
             _retune(kept, self._make_tx(overrides))
             state, how = kept, "keep"
@@ -358,6 +389,35 @@ class ElasticTrainer:
                                      state_s=time.monotonic() - t0)
         return state
 
+    def _sharded_module(self, mesh) -> torch.nn.Module:
+        """A fresh copy of the model sharded over ``mesh`` (FSDP2 when the
+        stage has a process group, whole on a one-worker stage without
+        one): built on ``meta``, sharded there, materialised shard by
+        shard on the device and filled with the given module's values
+        (the buffers, and the parameters unless ``init_weights`` will
+        draw them)."""
+        import copy
+
+        from edl_tpu_torch.parallel.mesh import sharded_init
+
+        if self._template is None:
+            keep = dict(self._model.named_buffers())
+            if self._seed is None:
+                keep.update(self._model.named_parameters())
+            self._host = {k: v.detach().to("cpu", copy=True)
+                          for k, v in keep.items()}
+            self._template = self._model.to("meta")
+        module = copy.deepcopy(self._template)
+        if dist.is_available() and dist.is_initialized():
+            shard_params_fsdp(mesh, module)
+        module.to_empty(device=mesh.device)
+        values = dict(module.named_parameters())
+        values.update(module.named_buffers())
+        with torch.no_grad(), sharded_init():
+            for name, host in self._host.items():
+                values[name].copy_(host.to(mesh.device))
+        return module
+
     def _fit_stage(
         self,
         data_fn: DataFn,
@@ -367,7 +427,7 @@ class ElasticTrainer:
     ) -> TrainState:
         env = init(device=self._device)
         t_setup = time.monotonic()  # train_setup trace segment starts here
-        mesh = make_mesh(self._mesh_axes, device=self._device)
+        mesh = self.mesh = make_mesh(self._mesh_axes, device=self._device)
         # cache-warming shadow stage: two steps, no checkpoint manager at
         # all (a warm stage must never touch the job's ckpt dir)
         warm = warm_only()
@@ -406,7 +466,8 @@ class ElasticTrainer:
             )
             state = self._build_state(env, mesh, mngr, overrides)
             # data parallelism: rank 0's parameters are broadcast now, and
-            # every backward averages the gradients over the ranks
+            # every backward averages the gradients over the ranks (an
+            # FSDP module reduces its own and is returned as it is)
             state.apply_fn = data_parallel(state.apply_fn, mesh)
             start_epoch = 0
             status_restored = None

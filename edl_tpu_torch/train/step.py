@@ -25,12 +25,18 @@ What changes with the framework:
   that splits into equal even halves, the gradient is the mean of two
   half-batch gradients, as in the JAX step. ``aux_losses=True`` waits for
   the MoE FFN that sows them (M15) and raises, naming the item.
+- A module that ``parallel.shard_params_fsdp`` sharded (FSDP2) takes no
+  DDP wrap: its backward reduce-scatters the gradients over ``fsdp`` and
+  all-reduces them over ``dp``, and the optimizer updates this rank's
+  shards. ``donate=False`` needs a copy of the module, which FSDP2
+  refuses (``deepcopy``).
 - ``apply_kwargs`` reach the model's forward; ``{"train": b}`` also sets
   the module's mode (``module.train(b)``) before the forward.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -80,19 +86,31 @@ class TrainState:
         return copy.deepcopy(self)
 
 
+def init_weights(model: torch.nn.Module, rng, device) -> None:
+    """``model.init_weights`` from ``rng`` (a seed, drawn on ``device``,
+    or a ``torch.Generator``). On an FSDP-sharded model each full draw is
+    sliced into this rank's shard (``parallel.sharded_init``: the model's
+    own init, one tensor whole at a time), so the weights are those of
+    the unsharded model drawn from the same generator."""
+    from edl_tpu_torch.parallel.mesh import is_fsdp, sharded_init
+
+    gen = rng if isinstance(rng, torch.Generator) else (
+        torch.Generator(device=device).manual_seed(int(rng)))
+    with sharded_init() if is_fsdp(model) else contextlib.nullcontext():
+        model.init_weights(gen)
+
+
 def create_state(model: torch.nn.Module, rng, tx: Transform,
                  device="cuda") -> TrainState:
     """Move ``model`` to ``device`` (the card unless the caller names the
     CPU), initialise its weights from ``rng`` (a seed or a
     ``torch.Generator``; None keeps the weights it has, e.g. converted
-    ones) and build the optimizer."""
+    ones) and build the optimizer. A model ``shard_params_fsdp`` sharded
+    already lives there; its optimizer's state is sharded alike."""
     dev = resolve_device(device)
     model.to(dev)
     if rng is not None:
-        gen = rng if isinstance(rng, torch.Generator) else (
-            torch.Generator(device=dev).manual_seed(int(rng))
-        )
-        model.init_weights(gen)
+        init_weights(model, rng, dev)
     return TrainState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         apply_fn=model,
@@ -209,7 +227,12 @@ def make_train_step(loss_head: LossHead,
     set aside while the second backward fills fresh ones (one model's
     worth of fp32 gradients more, no copy); under data parallelism both
     backwards all-reduce, so each half is a gradient over half of the
-    global batch. A model with batch stats takes one full-batch pass (two
+    global batch. Under FSDP2 each backward reduce-scatters likewise and
+    leaves its sharded gradient in ``.grad`` when the parameter had none
+    (it accumulates only into a gradient still there), so the first
+    half's shards are set aside the same way and no gradient sync is
+    switched off; the halves' norms sum their shards over the group
+    (``obs.numerics.global_norm``). A model with batch stats takes one full-batch pass (two
     half-batch forwards would update its running averages twice, from
     half-batch statistics), as the JAX step decides for ``batch_stats``."""
     if aux_losses:

@@ -484,11 +484,11 @@ def _raises_naming(fn, item):
 # each feature of slice 3b, and the ROADMAP item a deferred one's refusal
 # names; None: ported, it runs (the checkpoint tiers of item 4:
 # test_torch_ckpt_tiers.py, test_torch_replicate.py; the emergency save and
-# hot restage: test_torch_hot_restage.py)
+# hot restage: test_torch_hot_restage.py; FSDP, item 5: test_torch_fsdp.py)
 _DEFERRED = {
     "async_save": None, "local_dir": None, "local_dir_env": None,
-    "emergency_replicate": None, "trainer_fsdp": "item 5",
-    "mesh_fsdp": "item 5", "shard_params_fsdp": "item 5",
+    "emergency_replicate": None, "trainer_fsdp": None,
+    "mesh_fsdp": None, "shard_params_fsdp": None,
 }
 
 
@@ -506,9 +506,9 @@ def test_deferred_features_name_slice_3b(tmp_path, clean_env, what):
             path).emergency_replicate(1.0),
         "trainer_fsdp": lambda: ElasticTrainer(
             model, adamw(1e-3), cross_entropy_loss, fsdp=True, device="cpu"),
-        "mesh_fsdp": lambda: make_mesh({"dp": 1, "fsdp": 2}, device="cpu"),
+        "mesh_fsdp": lambda: make_mesh({"dp": 1, "fsdp": -1}, device="cpu"),
         "shard_params_fsdp": lambda: shard_params_fsdp(
-            make_mesh(device="cpu"), {}),
+            make_mesh({"dp": 1, "fsdp": -1}, device="cpu"), model),
     }
     if _DEFERRED[what] is not None:
         _raises_naming(calls[what], _DEFERRED[what])
@@ -518,6 +518,15 @@ def test_deferred_features_name_slice_3b(tmp_path, clean_env, what):
         out = out[-1]  # (setenv, manager)
     if what == "emergency_replicate":
         assert out is False  # no local tier: no peer to push to
+    elif what == "trainer_fsdp":
+        # the whole world shards the state: {"dp": 1, "fsdp": -1}
+        assert out._fsdp and out._mesh_axes == {"dp": 1, "fsdp": -1}
+    elif what == "mesh_fsdp":
+        assert out.shape == {"dp": 1, "fsdp": 1} and out.device_mesh is None
+    elif what == "shard_params_fsdp":
+        # a one-worker stage without a process group keeps the model whole
+        assert out is model and not any(
+            type(p).__name__ == "DTensor" for p in model.parameters())
     elif what == "async_save":
         assert out._async and out.durable_path is None
     else:

@@ -13,6 +13,9 @@ drill's schedule deterministic:
   first stage there holds until its pod's preemption notice is in the
   store.
 
+``TEST_FSDP=1`` trains with ``fsdp=True`` (``{"dp": 1, "fsdp": -1}``):
+every rank of the stage takes the whole global batch.
+
 It writes ``loss.<epoch>.<stage>.<rank>``, ``pid.<stage>.<rank>`` and, at
 the end, ``done.<stage>.<rank>`` (the final step) into ``TEST_OUT_DIR``,
 and its hot restages into ``restages.<pid>``.
@@ -34,6 +37,7 @@ OUT = os.environ["TEST_OUT_DIR"]
 HOLDS = {int(e) for e in os.environ.get("TEST_HOLD_EPOCHS", "").split(",") if e}
 DRAIN_EPOCH = int(os.environ.get("TEST_DRAIN_EPOCH", "-1"))
 EPOCHS = int(os.environ.get("TEST_EPOCHS", "4"))
+FSDP = os.environ.get("TEST_FSDP") == "1"
 BATCHES, GLOBAL, SEQ, VOCAB = 3, 8, 16, 64
 SETTLE = 1.0  # after a hold: the trainer's own watch sees the change too
 STEPS = drill.count_steps(train_loop)  # train steps this process has run
@@ -50,8 +54,8 @@ def data_fn(epoch):
         drill.hold_at_epoch(OUT, epoch, SETTLE)
     base = STEPS[0]
     rng = np.random.RandomState(100 + epoch)
-    rows = GLOBAL // env.world_size
-    lo = env.global_rank * rows
+    rows = GLOBAL // trainer.mesh.dp_size
+    lo = trainer.mesh.dp_rank * rows
     for i in range(BATCHES):
         tok = rng.randint(0, VOCAB, (GLOBAL, SEQ + 1)).astype(np.int64)
         yield tok[lo:lo + rows, :-1], tok[lo:lo + rows, 1:]
@@ -71,6 +75,7 @@ trainer = ElasticTrainer(
     adamw(1e-3),
     cross_entropy_loss,
     ckpt_dir=os.environ["EDL_CKPT_PATH"],
+    fsdp=FSDP,
     log=True,
     device="cpu",
 )
