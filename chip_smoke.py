@@ -148,6 +148,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              version restored at fsdp 1 on the card and (a)'s fsdp-1
              version restored at fsdp 2, both bit for bit against the
              gathered saved state. No kernel of K1-K3 lies on this path.
+12. distill - elastic distillation through the entry points a user runs,
+             each a process on the card: the port's store server,
+             ``python -m edl_tpu_torch.distill.discovery_server``,
+             ``examples.distill_teacher`` and ``examples.distill_student``
+             (ResNet50_vd at 224x224 on both sides, the student 2 epochs
+             of 8 batches of 32). (a) Teacher A wedges on its 2nd predict
+             and is SIGKILLed a second later without deregistering, and a
+             replacement C starts; teacher B (``EDL_POD_ID``) gets its
+             pod's preemption notice while the student holds at its second
+             epoch's start. Every epoch's 8 batches arrive exactly once and
+             in order (the labels against the stream's), B leaves every
+             assignment within 2.0 s of its drain mark, and the first
+             batch's served soft labels equal this process's forward of
+             the same seeded teacher. Reports the student's img/s, the
+             reader's wait per batch, a teacher's time per request, the
+             time from the kill to the next batch, and, each alone, the
+             student's synthetic stream per batch and its train step. (b) ``examples.
+             distill_nlp``'s teacher (K1, fp32, head width 32) and student
+             (K1-K3, fp32, head width 16) at the example's sizes: each
+             side's launches equal layers x requests or steps, and the
+             student's kd-loss is finite and falls.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -212,11 +233,13 @@ KERNEL_CASES = (
     ((2, 16, 16, 256, 1024, 64), True, "bfloat16"),    # end-aligned Tq < Tk
     ((2, 16, 16, 96, 64, 64), True, "bfloat16"),       # rows with no key
     ((8, 4, 4, 64, 64, 32), True, "float32"),          # small config
+    ((16, 4, 4, 64, 64, 16), True, "float32"),         # nlp student, D 16
 )
 FLAGSHIP_CASE = 0
+STUDENT_CASE = 9  # distill_nlp's student: fp32, head width 16
 # the backward pair runs on the training path: K1's cases but the served
 # buckets
-BWD_CASES = (0, 3, 4, 5, 6, 7, 8)
+BWD_CASES = (0, 3, 4, 5, 6, 7, 8, 9)
 SOURCES = ("flash_fwd", "flash_bwd")
 SERVE_SEQ = 1024
 SERVE_ROWS = (1, 3)
@@ -320,6 +343,40 @@ FSDP_JOB_BATCH = 32
 FSDP_JOB_STEPS = 3
 TOL_FSDP_STEP = 1e-6  # sharded vs unsharded, relative, when not bit for bit
 TOL_FSDP_JOB = 1e-3   # world-2 fsdp-2 losses against world 1
+# phase distill: (a) ResNet50_vd teachers at 224x224 serve a ResNet50_vd
+# student (2 epochs of 8 batches of 32) through the port's store and
+# discovery server. Each teacher gets one warm-up request at the
+# student's batch as soon as it serves (its first conv calls pick their
+# kernels). Teacher A wedges on its DISTILL_WEDGE_AT-th predict (a chaos
+# delay: the first of the student's, which the pool's least-loaded pick
+# sends among the epoch's first three) and is SIGKILLed
+# DISTILL_KILL_AFTER_S later, mid-epoch,
+# without deregistering; a replacement C starts. The student holds
+# DISTILL_HOLD_S at its second epoch's start (a chaos delay) while teacher
+# B's pod gets its preemption notice: B must leave every assignment within
+# DRAIN_GRACE_S of its drain mark (the JAX scenario's bound). The first
+# batch's served soft labels against this process's forward of the same
+# seeded teacher on the same images: max |diff| over the batch's max
+# probability. Both are the same bf16 forward on the same card, so only a
+# cuDNN algorithm choice or the bucketed batch can move them; an ulp of
+# bf16 is 2^-8 relative and 50 layers carry a few, far below this bound.
+# (b) distill_nlp's teacher and student at the example's sizes.
+DISTILL_JOB = "chip-smoke-distill"
+DISTILL_BATCH = 32
+DISTILL_BATCHES = 8  # an epoch of distill_student
+DISTILL_EPOCHS = 2
+DISTILL_WEDGE_AT = 2  # after the warm-up: A's first from the student
+DISTILL_KILL_AFTER_S = 1.0
+DISTILL_HOLD_S = 3.0
+DRAIN_GRACE_S = 2.0
+DISTILL_WAIT_S = 300.0
+DISTILL_LATENCY_REQUESTS = 10
+TOL_DISTILL_SOFT = 2e-2
+NLP_JOB = "chip-smoke-distill-nlp"
+NLP_TEACHER_LAYERS = 4
+NLP_STUDENT_LAYERS = 2
+NLP_EPOCHS = 2
+NLP_BATCHES = 8
 
 
 def emit(obj) -> None:
@@ -861,15 +918,9 @@ def phase_serve(torch, model):
 
 
 def _launch_counts():
-    from edl_tpu_torch.ops.attention import (
-        flash_bwd_dkv,
-        flash_bwd_dq,
-        flash_forward,
-    )
+    from edl_tpu_torch.ops.attention import launch_counts
 
-    return {"flash_fwd": flash_forward.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches}
+    return launch_counts()
 
 
 def _zero_counts() -> None:
@@ -3398,6 +3449,370 @@ def phase_fsdp(torch, smi: str) -> dict:
     return out
 
 
+def _log_has(path: str, pattern: str):
+    """The first match of ``pattern`` in the file at ``path``, or None."""
+    try:
+        with open(path, errors="replace") as fh:
+            return re.search(pattern, fh.read())
+    except FileNotFoundError:
+        return None
+
+
+def _summary(path: str, tag: str) -> dict:
+    found = _log_has(path, r"%s summary (\{.*\})" % tag)
+    check(found is not None, "%s printed no summary:\n%s" % (tag, _tail(path)))
+    return json.loads(found.group(1))
+
+
+def _distill_images(small: bool, batches: int):
+    """The student's stream (``distill_student.sample_generator`` from
+    ``RandomState(0)``, rank 0): (images of the first batch, every batch's
+    labels [batches, DISTILL_BATCH])."""
+    import numpy as np
+
+    from edl_tpu_torch.examples.distill_student import sample_generator
+
+    size, classes = (32, 10) if small else (224, 1000)
+    gen = sample_generator(np.random.RandomState(0),
+                           DISTILL_BATCH * batches, size, classes)()
+    images, labels = [], []
+    for i, (image, label) in enumerate(gen):
+        if i < DISTILL_BATCH:
+            images.append(image)
+        labels.append(label)
+    return (np.stack(images),
+            np.asarray(labels, np.int32).reshape(batches, DISTILL_BATCH))
+
+
+def _distill_step_ms(torch, device: str, small: bool, images, labels,
+                     soft) -> float:
+    """The student's train step alone (``distill_student``'s loss, SGD
+    0.01 momentum 0.9, train mode) on one resident batch: ms a step over
+    10 steps after 3, host clock ending in a synchronise."""
+    from edl_tpu_torch.examples.distill_student import distill_loss
+    from edl_tpu_torch.examples.distill_teacher import build_model
+    from edl_tpu_torch.train import create_state, make_train_step, sgd
+
+    model, _ = build_model(small, device)
+    state = create_state(model, None, sgd(0.01, momentum=0.9), device=device)
+    step = make_train_step(distill_loss, {"train": True})
+    batch = (torch.from_numpy(images).to(device),
+             (torch.from_numpy(labels).to(device),
+              torch.from_numpy(soft).to(device)))
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    for i in range(13):
+        if i == 3:
+            sync()
+            t0 = time.perf_counter()
+        state, _ = step(state, batch)
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / 10
+
+
+def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
+    """Part (a): teachers A and B, the student, A's wedge and SIGKILL, the
+    replacement C, B's drain on its pod's preemption notice."""
+    import numpy as np
+
+    from edl_tpu_torch.cluster.contract import PREEMPT_SERVICE
+    from edl_tpu_torch.discovery.registry import Registry
+    from edl_tpu_torch.distill.discovery import (
+        ASSIGN_SERVICE,
+        DRAINING,
+        TEACHER_SERVICE,
+    )
+    from edl_tpu_torch.distill.serving import PredictClient
+    from edl_tpu_torch.examples.distill_teacher import build_model
+    from edl_tpu_torch.store.client import StoreClient
+
+    logs = cp.logs
+    size_flag = ["--small"] if small else []
+    teacher = [sys.executable, "-m", "edl_tpu_torch.examples.distill_teacher",
+               "--store", cp.endpoint, "--job_id", DISTILL_JOB,
+               "--device", device, *size_flag]
+    chaos_log = os.path.join(work, "chaos.log")
+    wedge = {"seed": 0, "rules": [
+        {"point": "distill.serving.predict", "proc": "teacher",
+         "action": "delay", "delay_s": 600.0, "after": DISTILL_WEDGE_AT,
+         "match": {"method": "predict"}}]}
+    hold = {"seed": 0, "rules": [
+        {"point": "distill.reader.epoch", "proc": "student",
+         "action": "delay", "delay_s": DISTILL_HOLD_S, "after": 2}]}
+    log = {n: os.path.join(logs, "distill_%s.log" % n)
+           for n in ("disc", "a", "b", "c", "student")}
+    cp._spawn([sys.executable, "-m", "edl_tpu_torch.distill.discovery_server",
+               "--store", cp.endpoint, "--job_id", DISTILL_JOB], log["disc"])
+    procs = {
+        "a": cp._spawn(teacher, log["a"], env=dict(
+            cp.env, EDL_CHAOS=json.dumps(wedge), EDL_CHAOS_LOG=chaos_log)),
+        "b": cp._spawn(teacher, log["b"], env=dict(cp.env, EDL_POD_ID="pod-b")),
+    }
+    ep = {}
+
+    def serving(name):
+        found = _log_has(log[name], r"teacher serving on (\S+)")
+        if found:
+            ep[name] = found.group(1)
+        return name in ep
+
+    client = StoreClient(cp.endpoint, timeout=10.0)
+    reg = Registry(client, DISTILL_JOB)
+    # the balancer's view, from the store's watches: (time, registrations)
+    # and (time, every client's assignment)
+    teachers_seen, assigns_seen = [], []
+    tw = reg.watch_service(TEACHER_SERVICE % "teacher", on_change=lambda s: (
+        teachers_seen.append((time.time(), {n: m.value for n, m in s.items()}))))
+    aw = reg.watch_service(ASSIGN_SERVICE % "teacher", on_change=lambda s: (
+        assigns_seen.append((time.time(), {
+            n: json.loads(m.value)["servers"] for n, m in s.items()}))))
+    rec_path = os.path.join(work, "student.npz")
+    # the student's own synthetic stream, alone: its host cost per batch
+    t_stream = time.perf_counter()
+    images, labels = _distill_images(small, DISTILL_EPOCHS * DISTILL_BATCHES)
+    stream_ms = 1e3 * (time.perf_counter() - t_stream) / len(labels)
+    feeds = {"image": images, "label": labels[0].astype(np.int64)}
+    warm = {}
+
+    def warm_up(name):
+        """One request at the student's batch: its time (ms)."""
+        pc = PredictClient(ep[name], timeout=120.0)
+        try:
+            t = time.perf_counter()
+            pc.predict(feeds)
+            warm[name] = 1e3 * (time.perf_counter() - t)
+        finally:
+            pc.close()
+
+    out = {}
+    try:
+        _wait(lambda: serving("a") and serving("b") and len(
+            reg.get_service(TEACHER_SERVICE % "teacher")) == 2,
+            "teachers A and B to register", procs.values())
+        warm_up("a")
+        warm_up("b")
+        t0 = time.time()
+        student = cp._spawn(
+            [sys.executable, "-m", "edl_tpu_torch.examples.distill_student",
+             "--store", cp.endpoint, "--job_id", DISTILL_JOB,
+             "--device", device, "--batch", str(DISTILL_BATCH),
+             "--epochs", str(DISTILL_EPOCHS), "--record", rec_path,
+             *size_flag],
+            log["student"], env=dict(cp.env, EDL_CHAOS=json.dumps(hold)))
+        t_wedge = t_kill = t_notice = None
+        deadline = time.monotonic() + DISTILL_WAIT_S
+        while student.poll() is None:
+            check(time.monotonic() < deadline,
+                  "distill: the student did not finish:\n%s"
+                  % _tail(log["student"]))
+            if t_wedge is None and os.path.exists(chaos_log):
+                t_wedge = time.time()
+            if t_kill is None and t_wedge is not None and (
+                    time.time() - t_wedge >= DISTILL_KILL_AFTER_S):
+                # A dies mid-request and stays registered (its lease runs)
+                os.killpg(procs["a"].pid, 9)
+                t_kill = time.time()
+                procs["c"] = cp._spawn(teacher, log["c"])
+            if "c" in procs and "c" not in warm and serving("c"):
+                warm_up("c")
+            if t_notice is None and _log_has(log["student"], r"epoch 0 "):
+                reg.set_permanent(PREEMPT_SERVICE, "pod-b", json.dumps({
+                    "deadline": time.time() + 60.0, "budget": 60.0,
+                    "ts": time.time()}).encode())
+                t_notice = time.time()
+            time.sleep(0.02)
+        out["student_rc"] = student.returncode
+        check(student.returncode == 0, "distill: student exited %s:\n%s"
+              % (student.returncode, _tail(log["student"])))
+        check(t_kill is not None and t_notice is not None,
+              "distill: kill at %s, notice at %s" % (t_kill, t_notice))
+        summary = _summary(log["student"], "student")
+        rec = np.load(rec_path)
+        # a teacher's time per request: C (the fleet's replacement), called
+        # directly with the first batch
+        _wait(lambda: serving("c"), "teacher C to serve", [procs["c"]])
+        pc = PredictClient(ep["c"], timeout=60.0)
+        try:
+            lat = []
+            for _ in range(DISTILL_LATENCY_REQUESTS + 1):
+                t = time.perf_counter()
+                pc.predict(feeds)
+                lat.append(1e3 * (time.perf_counter() - t))
+        finally:
+            pc.close()
+    except BaseException:
+        for name in sorted(log):
+            sys.stderr.write("--- %s\n%s" % (name, _tail(log[name])))
+        raise
+    finally:
+        tw.cancel()
+        aw.cancel()
+        client.close()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+    # B's drain: the mark (its registration flips to draining), then the
+    # first assignment view with B in no client's list
+    b = ep["b"]
+    t_mark = next((t for t, regs in teachers_seen
+                   if regs.get(b) == DRAINING), None)
+    check(t_mark is not None, "distill: B was never marked draining")
+    b_before = any(b in servers for t, views in assigns_seen if t < t_mark
+                   for servers in views.values())
+    t_out = next((t for t, views in assigns_seen if t >= t_mark
+                  and not any(b in s for s in views.values())), None)
+    check(b_before, "distill: B was in no assignment before its drain")
+    check(t_out is not None, "distill: B stayed assigned after its drain")
+    ts = rec["ts"]
+    served_after_kill = [t for t in ts if t > t_kill]
+    # the served soft labels against this process's forward of the same
+    # seeded teacher on the same images
+    model, _ = build_model(small, device)
+    model.eval()
+    with torch.inference_mode():
+        want = torch.softmax(model(torch.from_numpy(images).to(device),
+                                   train=False).float(), dim=-1).cpu().numpy()
+    del model
+    soft_err = float(np.abs(rec["soft0"] - want).max() / want.max())
+    step_ms = _distill_step_ms(torch, device, small, images, labels[0], want)
+    lat = sorted(lat[1:])
+    out.update({
+        "batches_per_epoch": summary["batches_per_epoch"],
+        "in_order_exactly_once": bool(
+            rec["labels"].shape == labels.shape
+            and (rec["labels"] == labels).all()),
+        # the student had begun its first epoch, which could not end
+        # before the wedged batch was served elsewhere
+        "kill_in_epoch_1": bool(
+            rec["epoch_t0"][0] < t_kill < ts[DISTILL_BATCHES - 1]),
+        "batches_before_kill": int((ts < t_kill).sum()),
+        "kill_to_next_batch_s": (served_after_kill[0] - t_kill
+                                 if served_after_kill else None),
+        "notice_to_mark_s": t_mark - t_notice,
+        "mark_to_unassigned_s": t_out - t_mark,
+        "drain_grace_s": DRAIN_GRACE_S,
+        "soft_label_max_err": soft_err, "tol_soft": TOL_DISTILL_SOFT,
+        "student_img_per_s": summary["img_per_s"],
+        "student_img_per_s_by_epoch": summary["img_per_s_by_epoch"],
+        "reader_wait_ms_per_batch": summary["reader_wait_ms_per_batch"],
+        "stream_ms_per_batch": stream_ms,
+        "student_step_ms": step_ms,
+        "reader_wait_ms_per_batch_by_epoch":
+            summary["reader_wait_ms_per_batch_by_epoch"],
+        "warm_up_ms": warm,
+        "student_predict_ms_mean": summary["teacher_predict_ms"],
+        "student_predicts": summary["predicts"],
+        "teacher_request_ms_median": lat[len(lat) // 2],
+        "teacher_request_ms_min": lat[0],
+        "job_s": time.time() - t0,
+    })
+    return out
+
+
+def _distill_nlp_job(cp, device: str) -> dict:
+    """Part (b): distill_nlp's teacher (K1 at head width 32) and student
+    (K1-K3 at head width 16) at the example's sizes."""
+    logs = cp.logs
+    base = [sys.executable, "-m", "edl_tpu_torch.examples.distill_nlp",
+            "--store", cp.endpoint, "--job_id", NLP_JOB, "--device", device,
+            "--epochs", str(NLP_EPOCHS), "--batches", str(NLP_BATCHES)]
+    log = {n: os.path.join(logs, "nlp_%s.log" % n)
+           for n in ("disc", "teacher", "student")}
+    cp._spawn([sys.executable, "-m", "edl_tpu_torch.distill.discovery_server",
+               "--store", cp.endpoint, "--job_id", NLP_JOB,
+               "--services", "nlp-teacher"], log["disc"])
+    teacher = cp._spawn(base + ["--role", "teacher"], log["teacher"])
+    t0 = time.time()
+    try:
+        _wait(lambda: _log_has(log["teacher"], r"registered under"),
+              "the nlp teacher to register", [teacher])
+        student = cp._spawn(base + ["--role", "student"], log["student"])
+        rc = student.wait(timeout=DISTILL_WAIT_S)
+        check(rc == 0, "distill nlp: student exited %s:\n%s"
+              % (rc, _tail(log["student"])))
+        teacher.terminate()
+        check(teacher.wait(timeout=60) == 0, "distill nlp: teacher exit %s"
+              % teacher.returncode)
+        st = _summary(log["student"], "student")
+        tc = _summary(log["teacher"], "teacher")
+    except BaseException:
+        for name in sorted(log):
+            sys.stderr.write("--- %s\n%s" % (name, _tail(log[name])))
+        raise
+    return {"student": st, "teacher": tc, "job_s": time.time() - t0}
+
+
+def phase_distill(torch, smi: str, device: str = "cuda",
+                  small: bool = False) -> dict:
+    """Elastic distillation on the card, through the entry points a user
+    runs: the port's store server, ``distill.discovery_server``,
+    ``examples.distill_teacher`` / ``distill_student`` (ResNet50_vd at
+    224x224 on both sides) and ``examples.distill_nlp``, each a process.
+    (a) every epoch's 8 batches exactly once and in order through a
+    teacher's death mid-epoch and its replacement, and another teacher's
+    drain on its pod's notice; (b) the nlp pair's kernel launches."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="edl-distill-")
+    t0 = time.monotonic()
+    cp = _ControlPlane(work, DISTILL_JOB, False)
+    try:
+        image = _distill_image_job(torch, cp, work, device, small)
+        nlp = _distill_nlp_job(cp, device)
+    finally:
+        cp.close()
+        shutil.rmtree(work, ignore_errors=True)
+    steps = NLP_EPOCHS * NLP_BATCHES
+    want_student = {k: NLP_STUDENT_LAYERS * steps
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # one forward a served request: retries re-send a batch
+    want_teacher = {"flash_fwd": NLP_TEACHER_LAYERS
+                    * nlp["teacher"]["requests"],
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    st = nlp["student"]
+    res = {"phase": "distill", "device": device, "card": smi,
+           "image": image,
+           "nlp": {"batches_per_epoch": st["batches_per_epoch"],
+                   "first_kd_loss": st["first_kd_loss"],
+                   "last_kd_loss": st["last_kd_loss"],
+                   "student_launches": st["launches"],
+                   "student_launches_want": want_student,
+                   "student_requeues": st["requeues"],
+                   "teacher_requests": nlp["teacher"]["requests"],
+                   "teacher_launches": nlp["teacher"]["launches"],
+                   "teacher_launches_want": want_teacher,
+                   "job_s": nlp["job_s"]},
+           "seconds": time.monotonic() - t0}
+    emit(res)
+    want_batches = [DISTILL_BATCHES] * DISTILL_EPOCHS
+    check(image["batches_per_epoch"] == want_batches,
+          "distill (a): batches per epoch %s" % image["batches_per_epoch"])
+    check(image["in_order_exactly_once"],
+          "distill (a): the batches' labels are not the stream's, in order")
+    check(image["kill_in_epoch_1"],
+          "distill (a): teacher A died outside the first epoch")
+    check(image["mark_to_unassigned_s"] <= DRAIN_GRACE_S,
+          "distill (a): B left the assignments %.3f s after its drain mark"
+          % image["mark_to_unassigned_s"])
+    check(image["soft_label_max_err"] <= TOL_DISTILL_SOFT,
+          "distill (a): served soft labels off by %.3g"
+          % image["soft_label_max_err"])
+    check(st["batches_per_epoch"] == [NLP_BATCHES] * NLP_EPOCHS,
+          "distill (b): batches per epoch %s" % st["batches_per_epoch"])
+    check(math.isfinite(st["first_kd_loss"]) and math.isfinite(
+        st["last_kd_loss"]) and st["last_kd_loss"] < st["first_kd_loss"],
+        "distill (b): kd-loss %s -> %s" % (st["first_kd_loss"],
+                                           st["last_kd_loss"]))
+    if device == "cuda":
+        check(st["launches"] == want_student,
+              "distill (b): student launches %s, want %s"
+              % (st["launches"], want_student))
+        check(nlp["teacher"]["launches"] == want_teacher,
+              "distill (b): teacher launches %s, want %s"
+              % (nlp["teacher"]["launches"], want_teacher))
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "edl_tpu_torch")):
         sys.stderr.write(
@@ -3437,6 +3852,7 @@ def main() -> int:
     phase_trainee(torch, dev["nvidia_smi"])
     phase_resnet(torch, dev["nvidia_smi"])
     phase_fsdp(torch, dev["nvidia_smi"])
+    distill = phase_distill(torch, dev["nvidia_smi"])
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")
@@ -3444,6 +3860,8 @@ def main() -> int:
     check(not leaked, "imported JAX or the JAX package: %s" % leaked)
     flag = kernels[FLAGSHIP_CASE]
     bflag = bwd[BWD_CASES.index(FLAGSHIP_CASE)]
+    w16, bw16 = kernels[STUDENT_CASE], bwd[BWD_CASES.index(STUDENT_CASE)]
+    nlp = distill["nlp"]
     line = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -3453,7 +3871,11 @@ def main() -> int:
         "launches_by_path": {"serve": serve["flash_launches"],
                              "train": train["launches"]["flash_fwd"],
                              "elastic": elastic["launches"]["flash_fwd"],
-                             "tiers": tiers["launches"]["flash_fwd"]},
+                             "tiers": tiers["launches"]["flash_fwd"],
+                             "distill_student":
+                                 nlp["student_launches"]["flash_fwd"],
+                             "distill_teacher":
+                                 nlp["teacher_launches"]["flash_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -3463,6 +3885,10 @@ def main() -> int:
         "bound_share": flag["bound_share"],
         "library_ms": flag["library_ms"],
         "shape": flag["shape"],
+        # the distillation student's case, fp32 at head width 16
+        "width16": {k: w16[k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
     }]
     for name, grads, line_no in (("flash_bwd_dq", ("dq",), 349),
                                  ("flash_bwd_dkv", ("dk", "dv"), 386)):
@@ -3475,7 +3901,9 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_path": {"train": train["launches"][name],
                                  "elastic": elastic["launches"][name],
-                                 "tiers": tiers["launches"][name]},
+                                 "tiers": tiers["launches"][name],
+                                 "distill_student":
+                                     nlp["student_launches"][name]},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),
@@ -3488,6 +3916,13 @@ def main() -> int:
             "bound_share": bflag["bound_share"][key],
             "library_ms": bflag["library_ms"],
             "shape": bflag["shape"],
+            "width16": {
+                "shape": bw16["shape"], "dtype": bw16["dtype"],
+                "max_abs_err": max(bw16["max_abs_err"][g] for g in grads),
+                "ms": bw16["%s_ms" % key], "plain_ms": bw16["plain_ms"],
+                "bound_ms": bw16["bounds"][key]["bound_ms"],
+                "bound_by": bw16["bounds"][key]["bound_by"],
+                "library_ms": bw16["library_ms"]},
         })
     emit({"kernels": line})
     print(dev["nvidia_smi"], flush=True)

@@ -87,6 +87,7 @@ import dataclasses
 import json
 import os
 import shutil
+import sys
 import threading
 import time
 import warnings
@@ -219,9 +220,14 @@ def _sharded(state) -> bool:
     """True when ``state`` holds ``DTensor`` shards (an FSDP-sharded
     module, or a ``name -> tensor`` dict of them): each rank holds part
     of the version, so saves keep every rank's files and loads are
-    collective."""
-    from torch.distributed.tensor import DTensor
-
+    collective. No state holds one while ``torch.distributed.tensor`` is
+    not imported: importing it (1.4 s on a CPU) on a restore's path would
+    put an untraced gap before the restore's span in every respawned
+    worker's restage trace."""
+    tensor_mod = sys.modules.get("torch.distributed.tensor")
+    if tensor_mod is None:
+        return False
+    DTensor = tensor_mod.DTensor
     if isinstance(state, dict):
         tensors = state.values()
     else:

@@ -23,7 +23,9 @@ batch-norm model's ``batch_stats`` collection (``.../BatchNorm_0/mean``,
 A tree is a nested dict of numpy arrays (``state.params``, the
 ``{"params": ...}`` dict ``Module.init`` returns, or ``{"params": ...,
 "batch_stats": ...}``), or an ``.npz`` whose keys are the ``/``-joined
-paths (:func:`save_npz` writes one). Loading casts each array to its
+paths (:func:`save_npz` writes one), or the bytes of flax's
+``serialization.to_bytes`` of such a tree (:func:`from_flax_bytes`,
+which reads them without flax). Loading casts each array to its
 parameter's dtype (fp32 masters for training) and copies it into the
 parameter as it is laid out (channels-last conv kernels stay so);
 :func:`to_flax` goes back, ``state_dict`` -> nested dict of numpy arrays,
@@ -36,6 +38,8 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+from edl_tpu_torch.rpc import _msgpack
 
 
 STATS = ("mean", "var")  # batch_stats leaves: module buffers in the port
@@ -117,3 +121,34 @@ def load_params(model: torch.nn.Module, params) -> torch.nn.Module:
     sd = load_npz(params) if isinstance(params, str) else to_state_dict(params)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# flax.serialization's msgpack ext code of an ndarray: the msgpack of
+# (shape, dtype name, C-order bytes)
+_EXT_NDARRAY = 1
+_CHUNKED = "__msgpack_chunked_array__"
+
+
+def _flax_ext(code: int, data: bytes) -> np.ndarray:
+    if code != _EXT_NDARRAY:
+        raise ValueError("flax msgpack ext type %d is not an array" % code)
+    shape, dtype, raw = _msgpack.unpackb(data)
+    return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape)
+
+
+def from_flax_bytes(data: bytes) -> Dict:
+    """The tree that flax's ``serialization.to_bytes`` wrote (``msgpack``
+    of a nested dict with ext-type-1 array leaves) as nested dicts of
+    numpy arrays, decoded by the port's own msgpack. Arrays above flax's
+    1 GiB chunk size (written as chunk lists) are refused."""
+    tree = _msgpack.unpackb(data, ext_hook=_flax_ext)
+
+    def check(node):
+        if isinstance(node, dict):
+            if _CHUNKED in node:
+                raise ValueError("chunked flax arrays (> 1 GiB) are not read")
+            for value in node.values():
+                check(value)
+
+    check(tree)
+    return tree

@@ -6,14 +6,18 @@ answering ``predict({"tokens": int32 [n, T]})`` with
 ``{"soft_label": softmax(logits, -1)}`` as fp32 ``[n, T, vocab]``.
 
     python -m edl_tpu_torch.distill.nlp_teacher --config flagship --port 9000
-    python -m edl_tpu_torch.distill.nlp_teacher --config small --device cpu
+    python -m edl_tpu_torch.distill.nlp_teacher --config small --device cpu \
+        --store 127.0.0.1:2379 --job_id distill-nlp --service nlp-teacher
 
 Configs: ``small`` is distill_nlp's teacher exactly (fp32); ``flagship``
 is the LM of ``tools/lm_bench.py`` (bf16, ~215 M parameters). Weights
 come from a seeded ``torch.Generator`` or, with ``--params``, from an
-``.npz`` of flax param paths (:mod:`edl_tpu_torch.convert`). Teacher
-registration in the coordination store (``--store``) comes with a later
-slice; point students at the printed endpoint.
+``.npz`` of flax param paths (:mod:`edl_tpu_torch.convert`). With
+``--store`` the endpoint registers under ``--service`` in the job's
+keyspace (:class:`~edl_tpu_torch.distill.discovery.TeacherRegister`:
+students discover it through the balancer, and a preemption notice for
+``EDL_POD_ID`` drains it); SIGTERM or SIGINT deregisters it and stops the
+server. Without ``--store``, point students at the printed endpoint.
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Optional
 
 import torch
 
+from edl_tpu_torch.chaos.plane import arm_from_env
 from edl_tpu_torch.convert import load_params
+from edl_tpu_torch.distill.discovery import TeacherRegister
 from edl_tpu_torch.distill.serving import PredictServer, TorchPredictBackend
 from edl_tpu_torch.models.transformer import TransformerLM
 from edl_tpu_torch.utils.device import resolve_device
@@ -72,6 +78,32 @@ def make_apply(model: TransformerLM):
     return apply
 
 
+def serve_until_signalled(server: PredictServer, store: Optional[str],
+                          job_id: str, service: str) -> None:
+    """Register ``server`` under ``service`` when a store is given, wait
+    for SIGTERM or SIGINT, then deregister and stop it (the server stops
+    too when the registration fails). The process arms
+    the chaos plane as ``teacher`` (``EDL_CHAOS``: the fault point
+    ``distill.serving.predict``)."""
+    arm_from_env("teacher")  # the chaos plane; a no-op without EDL_CHAOS
+    stop = threading.Event()
+    # handlers first: a signal that lands once the endpoint is registered
+    # must deregister it
+    prev = {sig: signal.signal(sig, lambda *a: stop.set())
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    reg = None
+    try:
+        if store:
+            reg = TeacherRegister(store, job_id, service, server.endpoint)
+        stop.wait()
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
+        if reg is not None:
+            reg.stop()
+        server.stop()
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=sorted(CONFIGS), default="flagship")
@@ -82,16 +114,16 @@ def main(argv=None) -> None:
         "--params", default=None,
         help=".npz of /-joined flax param paths (default: seeded random)",
     )
+    parser.add_argument("--store", default=None,
+                        help="register the endpoint in this store")
+    parser.add_argument("--job_id", default="distill-nlp")
+    parser.add_argument("--service", default="nlp-teacher")
     args = parser.parse_args(argv)
     model = build_teacher(args.config, args.device, args.seed, args.params)
     backend = TorchPredictBackend(make_apply(model), device=args.device)
     server = PredictServer(backend, port=args.port).start()
     print("nlp teacher serving on %s" % server.endpoint, flush=True)
-    stop = threading.Event()
-    signal.signal(signal.SIGTERM, lambda *a: stop.set())
-    signal.signal(signal.SIGINT, lambda *a: stop.set())
-    stop.wait()
-    server.stop()
+    serve_until_signalled(server, args.store, args.job_id, args.service)
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ The port of ``edl_tpu/distill/serving.py``: the same server, client,
 admission plane and coalescer, speaking the same EDL1/EDL2 frames, so a
 JAX-package ``PredictClient``/``DistillReader`` talks to a port teacher
 and back. ``TorchPredictBackend`` takes the place of ``JaxPredictBackend``.
-The ``/metrics`` + ``/healthz`` mount (``EDL_OBS_PORT``) is carried; the
-chaos fault point is ROADMAP item 6.
+The ``/metrics`` + ``/healthz`` mount (``EDL_OBS_PORT``) and the chaos
+fault point ``distill.serving.predict`` are carried.
 
 Replaces the reference's dependency on Paddle Serving
 (python/edl/distill/distill_worker.py:23, 228-291 ``PaddlePredictServer``)
@@ -49,6 +49,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from edl_tpu_torch.chaos.plane import fault_point as _fault_point
 from edl_tpu_torch.obs import http as obs_http
 from edl_tpu_torch.obs import metrics as obs_metrics
 from edl_tpu_torch.obs import trace as obs_trace
@@ -73,6 +74,12 @@ from edl_tpu_torch.utils.timeline import make_timeline
 _TC = obs_trace.PROPAGATION
 
 logger = get_logger("distill.serving")
+
+_FP_SERVE = _fault_point(
+    "distill.serving.predict",
+    "teacher-side predict: delay (overloaded teacher), drop (conn reset "
+    "mid-request), or kill (the teacher process dies)",
+)
 
 _M_SERVE_REQUESTS = obs_metrics.counter(
     "edl_distill_serve_requests_total", "predict RPCs served by this teacher"
@@ -624,6 +631,10 @@ class PredictServer:
                 if method == "ping":
                     sock.sendall(pack_frame({"i": rid, "ok": True}))
                     continue
+                if _FP_SERVE.armed:
+                    # port ctx lets a chaos rule target ONE teacher of an
+                    # in-process fleet (match={"port": ...})
+                    _FP_SERVE.fire(method=str(method), port=self.port)
                 if method != "predict":
                     sock.sendall(
                         pack_frame(

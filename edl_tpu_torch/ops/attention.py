@@ -51,7 +51,10 @@ NEG_INF = -1e30
 
 # dtype codes of the C interface
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# head widths each element type's kernel bodies are built for: the fp32
+# bodies (CUDA cores) also take 16, a narrow student's; the bf16 wgmma tiles
+# start at 32
+_HEAD_DIMS = {torch.float32: (16, 32, 64, 128), torch.bfloat16: (32, 64, 128)}
 
 
 def _dense_causal_mask(scores: torch.Tensor) -> torch.Tensor:
@@ -166,9 +169,10 @@ def _check_kernel_inputs(q, k, v, what: str = "flash_forward",
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, heads, T, D]")
     b, h, _, d = q.shape
-    if d not in _HEAD_DIMS:
+    if d not in _HEAD_DIMS[q.dtype]:
         raise ValueError(
-            "%s takes head_dim in %s, not %d" % (what, _HEAD_DIMS, d)
+            "%s takes %s head_dim in %s, not %d"
+            % (what, q.dtype, _HEAD_DIMS[q.dtype], d)
         )
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(
@@ -453,6 +457,13 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal: bool = False, scale=None):
 
 
 flash_bwd_dkv.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches in this process so far."""
+    return {"flash_fwd": flash_forward.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches}
 
 
 def flash_backward(q, k, v, g, lse, delta, causal: bool, scale: float):

@@ -21,7 +21,9 @@
 //   - `lse` and `delta` are [B*H, t_pad] fp32 rows, t_pad a multiple of 128
 //     and at least Tq, zero past Tq; lse comes multiplied by log2(e), so
 //     p = exp2(s c - lse) with c = scale log2(e).
-//   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated).
+//   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated); fp32
+//     also takes head_dim 16 (a student's narrow heads). bf16 at 16 is
+//     refused (cudaErrorInvalidValue): its wgmma tiles start at 32.
 //   - causal mask end-aligned (row i sees keys j <= i + Tk - Tq). A masked
 //     entry has p = 0 and ds = 0 (the reference's masked_fill passes no
 //     gradient); keys past Tk and rows past Tq have p = 0 exactly. A causal
@@ -795,13 +797,15 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_f32_kernel(Params p) {
 
 template <int D>
 cudaError_t allow_smem_all() {
-  cudaError_t err = allow_smem(flash_bwd_dq_bf16_kernel<D>, DqSmem<D>::BYTES);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, DkvSmem<D>::BYTES);
-  if (err == cudaSuccess)
-    err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem_bytes_dq_f32<D>());
+  cudaError_t err = allow_smem(flash_bwd_dq_f32_kernel<D>, smem_bytes_dq_f32<D>());
   if (err == cudaSuccess)
     err = allow_smem(flash_bwd_dkv_f32_kernel<D>, smem_bytes_dkv_f32<D>());
+  if constexpr (D != 16) {
+    if (err == cudaSuccess)
+      err = allow_smem(flash_bwd_dq_bf16_kernel<D>, DqSmem<D>::BYTES);
+    if (err == cudaSuccess)
+      err = allow_smem(flash_bwd_dkv_bf16_kernel<D>, DkvSmem<D>::BYTES);
+  }
   return err;
 }
 
@@ -831,6 +835,8 @@ cudaError_t launch(int which, int dtype, BwdArgs& a, int B,
       const dim3 grid((p.Tk + BK - 1) / BK, B * p.Hkv);
       flash_bwd_dkv_f32_kernel<D><<<grid, NTHREADS, smem_bytes_dkv_f32<D>(), stream>>>(p);
     }
+  } else if constexpr (D == 16) {
+    return cudaErrorInvalidValue;  // fp32 only at head_dim 16
   } else if (dtype == 1) {
     if (which == 0) {
       using S = DqSmem<D>;
@@ -886,6 +892,7 @@ int run(int which, int dtype, int head_dim, const void* q, const void* k,
   p.s1 = {st[15], st[16], st[17]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16: return static_cast<int>(launch<16>(which, dtype, a, B, s));
     case 32: return static_cast<int>(launch<32>(which, dtype, a, B, s));
     case 64: return static_cast<int>(launch<64>(which, dtype, a, B, s));
     case 128: return static_cast<int>(launch<128>(which, dtype, a, B, s));
@@ -902,7 +909,8 @@ extern "C" int edl_flash_bwd_prepare() {
   if (hopper::encode_tiled() == nullptr) {
     return static_cast<int>(cudaErrorNotSupported);
   }
-  cudaError_t err = allow_smem_all<32>();
+  cudaError_t err = allow_smem_all<16>();
+  if (err == cudaSuccess) err = allow_smem_all<32>();
   if (err == cudaSuccess) err = allow_smem_all<64>();
   if (err == cudaSuccess) err = allow_smem_all<128>();
   return static_cast<int>(err);

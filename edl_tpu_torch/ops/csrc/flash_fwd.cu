@@ -15,7 +15,9 @@
 //     and the strides 16-byte multiples (the wrapper copies an operand that
 //     is not). o [B, H, Tq, D] in the input type, written with the strides
 //     given; lse [B*H, Tq] fp32.
-//   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated).
+//   - element type bf16 or fp32, head_dim 32, 64 or 128 (templated); fp32
+//     also takes head_dim 16 (a student's narrow heads). bf16 at 16 is
+//     refused (cudaErrorInvalidValue): its wgmma tiles start at 32.
 //   - Tq and Tk arbitrary: ragged query rows and keys are masked here, so no
 //     shape needs a fallback. Keys past Tk get -inf (p = 0 exactly).
 //   - causal mask end-aligned (query row i sees keys j <= i + Tk - Tq) with
@@ -510,16 +512,26 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
     for (int key = 0; key < BK; ++key) {
       const float4 pa = *reinterpret_cast<const float4*>(&sPt[key * LDP + 4 * r]);
       const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
+      if constexpr (DC % 4 == 0) {
 #pragma unroll
-      for (int j4 = 0; j4 < DC; j4 += 4) {
-        const float4 va =
-            *reinterpret_cast<const float4*>(&sV[key * D + c * DC + j4]);
+        for (int j4 = 0; j4 < DC; j4 += 4) {
+          const float4 va =
+              *reinterpret_cast<const float4*>(&sV[key * D + c * DC + j4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][j4 + 0] = fmaf(pv[i], va.x, acc[i][j4 + 0]);
+            acc[i][j4 + 1] = fmaf(pv[i], va.y, acc[i][j4 + 1]);
+            acc[i][j4 + 2] = fmaf(pv[i], va.z, acc[i][j4 + 2]);
+            acc[i][j4 + 3] = fmaf(pv[i], va.w, acc[i][j4 + 3]);
+          }
+        }
+      } else {  // D 16: two columns a thread
+        const float2 va =
+            *reinterpret_cast<const float2*>(&sV[key * D + c * DC]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          acc[i][j4 + 0] = fmaf(pv[i], va.x, acc[i][j4 + 0]);
-          acc[i][j4 + 1] = fmaf(pv[i], va.y, acc[i][j4 + 1]);
-          acc[i][j4 + 2] = fmaf(pv[i], va.z, acc[i][j4 + 2]);
-          acc[i][j4 + 3] = fmaf(pv[i], va.w, acc[i][j4 + 3]);
+          acc[i][0] = fmaf(pv[i], va.x, acc[i][0]);
+          acc[i][1] = fmaf(pv[i], va.y, acc[i][1]);
         }
       }
     }
@@ -546,8 +558,11 @@ __global__ void __launch_bounds__(NTHREADS) flash_fwd_f32_kernel(Params p) {
 template <int D>
 cudaError_t allow_smem_dtypes() {
   cudaError_t err = allow_smem(flash_fwd_f32_kernel<D>, smem_bytes_f32<D>());
-  if (err != cudaSuccess) return err;
-  return allow_smem(flash_fwd_bf16_kernel<D>, FwdSmem<D>::BYTES);
+  if constexpr (D != 16) {
+    if (err == cudaSuccess)
+      err = allow_smem(flash_fwd_bf16_kernel<D>, FwdSmem<D>::BYTES);
+  }
+  return err;
 }
 
 template <int D>
@@ -557,6 +572,8 @@ cudaError_t launch(int dtype, FwdArgs& a, int B, int Hkv,
   if (dtype == 0) {
     const dim3 grid((p.Tq + BQ - 1) / BQ, B * p.H);
     flash_fwd_f32_kernel<D><<<grid, NTHREADS, smem_bytes_f32<D>(), stream>>>(p);
+  } else if constexpr (D == 16) {
+    return cudaErrorInvalidValue;  // fp32 only at head_dim 16
   } else if (dtype == 1) {
     if (!hopper::encode_rows_map(&a.tq, p.q, D, p.Tq, p.H, B, p.sq.t, p.sq.h,
                                  p.sq.b, 64) ||
@@ -584,7 +601,8 @@ extern "C" int edl_flash_fwd_prepare() {
   if (hopper::encode_tiled() == nullptr) {
     return static_cast<int>(cudaErrorNotSupported);
   }
-  cudaError_t err = allow_smem_dtypes<32>();
+  cudaError_t err = allow_smem_dtypes<16>();
+  if (err == cudaSuccess) err = allow_smem_dtypes<32>();
   if (err == cudaSuccess) err = allow_smem_dtypes<64>();
   if (err == cudaSuccess) err = allow_smem_dtypes<128>();
   return static_cast<int>(err);
@@ -628,6 +646,7 @@ extern "C" int edl_flash_fwd(
   p.so = {o_sb, o_sh, o_st};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 16: return static_cast<int>(launch<16>(dtype, a, B, Hkv, s));
     case 32: return static_cast<int>(launch<32>(dtype, a, B, Hkv, s));
     case 64: return static_cast<int>(launch<64>(dtype, a, B, Hkv, s));
     case 128: return static_cast<int>(launch<128>(dtype, a, B, Hkv, s));

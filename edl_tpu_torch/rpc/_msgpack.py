@@ -7,7 +7,9 @@ codec is fast enough. ``packb`` is byte-identical to
 ``msgpack.packb(obj, use_bin_type=True)`` on that subset (smallest
 encoding for every int and length, float64 for every float); ``unpackb``
 matches ``msgpack.unpackb(body, raw=False, strict_map_key=False)``,
-arrays decoding as lists.
+arrays decoding as lists. ``unpackb`` also reads the ext types, handing
+each ``(code, data)`` to ``ext_hook`` (flax's ``to_bytes`` artifacts
+carry their arrays so: :mod:`edl_tpu_torch.convert`).
 """
 
 from __future__ import annotations
@@ -111,12 +113,17 @@ def packb(obj) -> bytes:
     return bytes(out)
 
 
-class _Reader:
-    __slots__ = ("buf", "pos")
+def _no_ext(code: int, data: bytes):
+    raise ValueError("msgpack ext type %d with no ext_hook" % code)
 
-    def __init__(self, buf) -> None:
+
+class _Reader:
+    __slots__ = ("buf", "pos", "ext_hook")
+
+    def __init__(self, buf, ext_hook=_no_ext) -> None:
         self.buf = memoryview(buf).cast("B")
         self.pos = 0
+        self.ext_hook = ext_hook
 
     def take(self, n: int) -> memoryview:
         end = self.pos + n
@@ -140,7 +147,11 @@ _HEADS = {
     0xD9: (_B, "str"), 0xDA: (_H, "str"), 0xDB: (_I, "str"),
     0xDC: (_H, "array"), 0xDD: (_I, "array"),
     0xDE: (_H, "map"), 0xDF: (_I, "map"),
+    0xC7: (_B, "ext"), 0xC8: (_H, "ext"), 0xC9: (_I, "ext"),
 }
+# fixext 1, 2, 4, 8, 16: the data's length
+_FIXEXT = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+
 
 
 def _unpack(rd: _Reader):
@@ -161,6 +172,9 @@ def _unpack(rd: _Reader):
         return False
     if tag == 0xC3:
         return True
+    if tag in _FIXEXT:
+        code = rd.unpack(_b)
+        return rd.ext_hook(code, bytes(rd.take(_FIXEXT[tag])))
     head = _HEADS.get(tag)
     if head is None:
         raise ValueError("unsupported msgpack type 0x%02x" % tag)
@@ -174,6 +188,9 @@ def _unpack(rd: _Reader):
         return str(rd.take(n), "utf-8")
     if kind == "array":
         return [_unpack(rd) for _ in range(n)]
+    if kind == "ext":
+        code = rd.unpack(_b)
+        return rd.ext_hook(code, bytes(rd.take(n)))
     return _unpack_map(rd, n)
 
 
@@ -185,8 +202,8 @@ def _unpack_map(rd: _Reader, n: int) -> dict:
     return out
 
 
-def unpackb(body):
-    rd = _Reader(body)
+def unpackb(body, ext_hook=_no_ext):
+    rd = _Reader(body, ext_hook)
     obj = _unpack(rd)
     if rd.pos != len(rd.buf):
         raise ValueError("extra data after msgpack object")

@@ -5,6 +5,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -56,8 +57,15 @@ def test_nlp_teacher_cli_answers_a_predict():
 
 
 def test_nlp_teacher_refuses_store_registration():
-    with pytest.raises(SystemExit):
-        nlp_teacher.main(["--device", "cpu", "--store", "127.0.0.1:2379"])
+    """``--store`` registers the teacher: with no store to register in,
+    the teacher raises (and stops its server) instead of serving
+    unregistered."""
+    from edl_tpu_torch.utils.net import find_free_ports
+
+    dead = "127.0.0.1:%d" % find_free_ports(1)[0]
+    with pytest.raises(ConnectionError):
+        nlp_teacher.main(["--device", "cpu", "--config", "small",
+                          "--store", dead])
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):
@@ -164,6 +172,64 @@ def test_resnet_entry_points_default_to_cuda(monkeypatch):
                  lambda: create_state(ResNet((1, 1), width=8), 0, sgd(0.1))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_distill_entry_points_default_to_cuda(monkeypatch):
+    """The distillation slice's entry points (the three examples, both
+    distill_nlp roles) run on the card unless given ``--device cpu``, and
+    raise without one before touching a store."""
+    from edl_tpu_torch.examples import (
+        distill_nlp,
+        distill_student,
+        distill_teacher,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    store = ["--store", "127.0.0.1:1"]
+    for call in (lambda: distill_teacher.main(store),
+                 lambda: distill_teacher.main(store + ["--small"]),
+                 lambda: distill_student.main(store + ["--small"]),
+                 lambda: distill_nlp.main(store + ["--role", "teacher"]),
+                 lambda: distill_nlp.main(store + ["--role", "student"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_discovery_server_cli_serves_and_stops():
+    """``python -m edl_tpu_torch.distill.discovery_server`` on a port
+    store: it claims its service (the balancer registers) and exits 0 on
+    SIGTERM."""
+    import signal as _signal
+
+    from test_torch_replicate import ChildStore
+
+    from edl_tpu_torch.discovery.registry import Registry
+    from edl_tpu_torch.distill.discovery import BALANCER_SERVICE
+    from edl_tpu_torch.store.client import StoreClient
+
+    store = ChildStore()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch.distill.discovery_server",
+         "--store", store.endpoint, "--job_id", "cli", "--balancer_id",
+         "b0"], env=_env(), cwd=REPO, start_new_session=True,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    client = StoreClient(store.endpoint, timeout=5.0)
+    try:
+        reg = Registry(client, "cli")
+        deadline = time.monotonic() + 60
+        while not reg.get_service(BALANCER_SERVICE):
+            assert time.monotonic() < deadline and proc.poll() is None
+            time.sleep(0.05)
+        assert [m.name for m in reg.get_service(BALANCER_SERVICE)] == ["b0"]
+        proc.send_signal(_signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+        assert not reg.get_service(BALANCER_SERVICE)
+    finally:
+        client.close()
+        if proc.poll() is None:
+            os.killpg(proc.pid, _signal.SIGKILL)
+            proc.wait(timeout=30)
+        store.stop()
 
 
 def test_resnet_entry_forward_on_cpu():

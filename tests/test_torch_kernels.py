@@ -46,6 +46,10 @@ CASES = [
     pytest.param((1, 4, 4, 150, 70, 64), True, torch.bfloat16, id="tq>tk"),
     pytest.param((2, 4, 4, 96, 96, 32), True, torch.bfloat16, id="bf16-d32"),
     pytest.param((2, 4, 4, 64, 64, 32), True, torch.float32, id="fp32-d32"),
+    # the nlp distillation student's heads (d_model 64 over 4 heads)
+    pytest.param((16, 4, 4, 64, 64, 16), True, torch.float32, id="fp32-d16"),
+    pytest.param((1, 4, 2, 90, 130, 16), False, torch.float32,
+                 id="fp32-d16-gqa-ragged"),
     pytest.param((2, 4, 2, 90, 130, 128), False, torch.float32, id="fp32-d128"),
 ]
 
@@ -337,6 +341,20 @@ def test_unsupported_inputs_raise(cuda):
     q, k, v = _inputs((1, 2, 2, 64, 64, 48), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_forward(q, k, v)
+
+
+def test_bf16_head_dim_16_raises(cuda):
+    """Head width 16 has fp32 bodies only: a bf16 call raises, with no
+    fallback to the plain version."""
+    q, k, v = _inputs((1, 2, 2, 64, 64, 16), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_forward(q, k, v)
+    g = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3], device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd_dq(q, k, v, g, lse, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_bwd_dkv(q, k, v, g, lse, lse)
 
 
 def test_lm_head_gradient_on_cuda(cuda):
