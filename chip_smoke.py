@@ -106,7 +106,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              load) beside a durable restore of the same version on this
              host; the time from the kill to the first step; the codec's
              cost on one file of the version.
-9. trainee - ``edl_tpu_torch/chaos/trainee.py`` on the card under the
+9. trainee - (run beside phase tiers, in a thread of its own)
+             ``edl_tpu_torch/chaos/trainee.py`` on the card under the
              port's store and launcher: one pod, 12 steps, a checkpoint
              every 4, an ``EDL_CHAOS`` rule that kills rank 0 at its 7th
              step; a replacement pod resumes and completes the job,
@@ -192,7 +193,28 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              rank's flash on the whole sequence, out and dq/dk/dv; (e) a
              GQA model at decode_bench's width with one kv head at tp 2
              (the replicate fallback): one AdamW step against world 1,
-             then greedy_generate's tokens, fp32.
+             then greedy_generate's tokens, fp32; the same two-rank launch
+             also runs phase moe's (c).
+14. moe    - the Switch MoE FFN (``models/moe.py``): (a) the flagship LM
+             with the JAX defaults' MoE (8 experts in every second block:
+             six MoE blocks, about 430 M parameters; bf16, ``save_flash``)
+             trains 10 steps at [8, 2048] through ``make_train_step(
+             aux_losses=True)``: losses finite and falling, the aux loss
+             above 0 on every step, 12 launches of each of K1-K3 a step;
+             step ms, host enqueue against one profiled step's device time
+             by class (attention, matrix products, dispatch, optimizer),
+             peak memory, each MoE block's share of dropped routes, and
+             one MoE block's forward by part (routing, the expert path,
+             its two batched products alone, forward + backward); (b)
+             ``SwitchMoE`` at the flagship's widths, top_k 1 and 2, and a
+             2-layer MoE LM's two AdamW steps, fp32, on the card and on the
+             CPU from the same weights: outputs and losses within 1e-5,
+             the served routes equal; (c) expert parallelism at ep 2 (two
+             gloo ranks on the card, in phase lm_parallel's tp launch): the
+             MoE LM at the flagship's widths cut to 4 layers, fp32, 3
+             steps at 2 x 2048 against world 1 on the same card: losses
+             and aux losses within 1e-5, gathered parameters within 1e-3,
+             each rank holding 4 of the 8 experts.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -204,9 +226,9 @@ prints no result. Imports nothing of JAX or of the JAX package.
 worker processes (the reference, and the worker the launcher spawns),
 ``python3 chip_smoke.py --resnet-launched OUT_DIR -- ARGS`` phase
 resnet's, ``python3 chip_smoke.py --fsdp-launched OUT_DIR FSDP1_DIR`` phase
-fsdp's, ``python3 chip_smoke.py --lm-launched KIND OUT_DIR RANK PORT``
-phase lm_parallel's two-rank workers, all started by the phases
-themselves.
+fsdp's, ``python3 chip_smoke.py --lm-launched OUT_DIR RANK PORT``
+phase lm_parallel's two-rank workers (they also run phase moe's (c)),
+all started by the phases themselves.
 """
 
 import concurrent.futures
@@ -217,6 +239,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -418,8 +441,16 @@ NLP_EPOCHS = 2
 NLP_BATCHES = 8
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, written whole (phases trainee and tiers run side by
+    side)."""
+    line = json.dumps(obj) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -759,11 +790,13 @@ def phase_kernels_bwd(torch) -> list:
     return results
 
 
-def _device_breakdown(torch, fn) -> dict:
+def _device_breakdown(torch, fn, classes=None) -> dict:
     """Device time of one synchronised ``fn()`` by kernel (torch.profiler,
     CUPTI): the total, the wall time under the profiler, the flash
-    kernels' times and share and the largest kernels. ``device_ms`` is
-    None where the trace holds no device events."""
+    kernels' times and share and the largest kernels; with ``classes``
+    (``(name, markers)`` pairs, tried in order) also the time of each
+    class of kernel names (``by_class_ms``, the rest under ``other``).
+    ``device_ms`` is None where the trace holds no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -794,10 +827,19 @@ def _device_breakdown(torch, fn) -> dict:
         name: sum(r[1] for r in kernels if name in r[0])
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     }
+    by_class = None
+    if classes:
+        by_class = {name: 0.0 for name, _ in classes}
+        by_class["other"] = 0.0
+        for key, ms, _n in kernels:
+            name = next((c for c, marks in classes
+                         if any(m in key for m in marks)), "other")
+            by_class[name] += ms
     return {
         "wall_ms": wall_ms,
         "device_ms": total if kernels else None,
         "device_idle_share": (1.0 - total / wall_ms) if kernels else None,
+        "by_class_ms": by_class,
         "flash_ms": flash,
         "flash_share": sum(flash.values()) / total if total else None,
         "top": [{"kernel": k[:80], "ms": ms, "count": n}
@@ -4008,8 +4050,8 @@ def _long_context(torch) -> dict:
             "world1_s": world1_s, "job_s": job_s}
 
 
-def _two_ranks(kind: str, out_dir: str) -> list:
-    """``chip_smoke.py --lm-launched KIND OUT_DIR RANK PORT`` as two gloo
+def _two_ranks(out_dir: str) -> list:
+    """``chip_smoke.py --lm-launched OUT_DIR RANK PORT`` as two gloo
     ranks sharing the card (sessions of their own, killed in
     ``finally``); their records."""
     from edl_tpu_torch.utils.net import find_free_ports
@@ -4017,14 +4059,14 @@ def _two_ranks(kind: str, out_dir: str) -> list:
     port = find_free_ports(1)[0]
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
-    logs = [os.path.join(out_dir, "%s.%d.log" % (kind, r)) for r in range(2)]
+    logs = [os.path.join(out_dir, "lm.%d.log" % r) for r in range(2)]
     procs = []
     try:
         for r in range(2):
             with open(logs[r], "w") as fh:
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__),
-                     "--lm-launched", kind, out_dir, str(r), str(port)],
+                     "--lm-launched", out_dir, str(r), str(port)],
                     env=env, cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
                     start_new_session=True))
         for proc in procs:
@@ -4037,10 +4079,11 @@ def _two_ranks(kind: str, out_dir: str) -> list:
     for proc, log in zip(procs, logs):
         if proc.returncode != 0:
             sys.stderr.write(_tail(log, 60))
-            raise AssertionError("%s rank exited %d" % (kind, proc.returncode))
+            raise AssertionError("lm_parallel rank exited %d"
+                                 % proc.returncode)
     recs = []
     for r in range(2):
-        with open(os.path.join(out_dir, "%s.%d.json" % (kind, r))) as fh:
+        with open(os.path.join(out_dir, "lm.%d.json" % r)) as fh:
             recs.append(json.load(fh))
     return recs
 
@@ -4098,61 +4141,71 @@ def _tp_run(torch, mesh=None) -> dict:
             "before": before, "after": after}
 
 
-def lm_parallel_child(torch, kind: str, out_dir: str, rank: int,
-                      port: int) -> None:
-    """One of two gloo ranks of phase lm_parallel (``--lm-launched``):
-    ``ulysses`` runs (d) on this rank's sequence shard; ``tp`` runs (e)
-    at tp 2, and rank 0 also the world-1 reference on the same card."""
-    import torch.distributed as dist
+def _ulysses_child(torch, out_dir: str, rank: int) -> dict:
+    """(d) on this rank's sequence shard: o and the gradients saved for
+    the phase to compare; the launches of the ulysses path."""
+    from edl_tpu_torch.parallel import make_mesh, ulysses_attention_sharded
 
+    mesh = make_mesh({"dp": 1, "sp": 2}, device="cuda")
+    _zero_counts()  # the ulysses path starts here
+    for kv in ULYSSES_KV:
+        q, k, v, g = _ulysses_inputs(torch, kv)
+        t = q.shape[2] // 2
+        shard = [x[:, :, rank * t:(rank + 1) * t].clone()
+                 for x in (q, k, v, g)]
+        for x in shard[:3]:
+            x.requires_grad_(True)
+        o = ulysses_attention_sharded(*shard[:3], mesh, causal=True)
+        o.backward(shard[3])
+        torch.save({"o": o.detach().cpu(),
+                    "dq": shard[0].grad.cpu(), "dk": shard[1].grad.cpu(),
+                    "dv": shard[2].grad.cpu()},
+                   os.path.join(out_dir, "ulysses.kv%d.%d.pt" % (kv, rank)))
+    return _launch_counts()
+
+
+def _tp_child(torch, rank: int) -> dict:
+    """(e) at tp 2; on rank 0 also its world-1 reference, compared."""
     from edl_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"dp": 1, "tp": 2}, device="cuda")
+    run = _tp_run(torch, mesh)
+    rec = {"loss": run["loss"], "launches": run["launches"],
+           "tokens": run["tokens"].tolist()}
+    if rank == 0:
+        ref = _tp_run(torch, None)
+        errs, upd = {}, {}
+        for name, want in ref["after"].items():
+            got = run["after"][name]
+            b = ref["before"][name]
+            errs[name] = (got - want).abs().max().item()
+            norm = (want - b).norm().item()
+            upd[name] = ((got - want).norm().item() / norm if norm
+                         else float("inf"))
+        rec.update(ref_loss=ref["loss"], ref_tokens=ref["tokens"].tolist(),
+                   param_max_abs_err=max(errs.values()),
+                   update_rel_l2=max(upd.values()),
+                   worst_update=max(upd, key=upd.get))
+    return rec
+
+
+def lm_parallel_child(torch, out_dir: str, rank: int, port: int) -> None:
+    """One of two gloo ranks of phase lm_parallel (``--lm-launched``), one
+    process for three runs: (d) Ulysses on this rank's sequence shard,
+    (e) at tp 2 and phase moe's (c) at ep 2, rank 0 also running (e)'s
+    and (c)'s world-1 references on the same card."""
+    import torch.distributed as dist
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
                             world_size=2, rank=rank)
-    rec = {"rank": rank, "pid": os.getpid()}
-    if kind == "ulysses":
-        from edl_tpu_torch.parallel import ulysses_attention_sharded
-
-        mesh = make_mesh({"dp": 1, "sp": 2}, device="cuda")
-        rec["cases"] = {}
-        _zero_counts()  # the ulysses path starts here
-        for kv in ULYSSES_KV:
-            q, k, v, g = _ulysses_inputs(torch, kv)
-            t = q.shape[2] // 2
-            shard = [x[:, :, rank * t:(rank + 1) * t].clone()
-                     for x in (q, k, v, g)]
-            for x in shard[:3]:
-                x.requires_grad_(True)
-            o = ulysses_attention_sharded(*shard[:3], mesh, causal=True)
-            o.backward(shard[3])
-            torch.save({"o": o.detach().cpu(),
-                        "dq": shard[0].grad.cpu(), "dk": shard[1].grad.cpu(),
-                        "dv": shard[2].grad.cpu()},
-                       os.path.join(out_dir, "ulysses.kv%d.%d.pt"
-                                    % (kv, rank)))
-        rec["launches"] = _launch_counts()
-    else:
-        mesh = make_mesh({"dp": 1, "tp": 2}, device="cuda")
-        run = _tp_run(torch, mesh)
-        rec.update(loss=run["loss"], launches=run["launches"],
-                   tokens=run["tokens"].tolist())
-        if rank == 0:
-            ref = _tp_run(torch, None)
-            errs, upd = {}, {}
-            for name, want in ref["after"].items():
-                got = run["after"][name]
-                b = ref["before"][name]
-                errs[name] = (got - want).abs().max().item()
-                norm = (want - b).norm().item()
-                upd[name] = ((got - want).norm().item() / norm if norm
-                             else float("inf"))
-            rec.update(ref_loss=ref["loss"], ref_tokens=ref["tokens"].tolist(),
-                       param_max_abs_err=max(errs.values()),
-                       update_rel_l2=max(upd.values()),
-                       worst_update=max(upd, key=upd.get))
-    with open(os.path.join(out_dir, "%s.%d.json" % (kind, rank)), "w") as fh:
+    rec = {"rank": rank, "pid": os.getpid(),
+           "ulysses_launches": _ulysses_child(torch, out_dir, rank)}
+    rec.update(_tp_child(torch, rank))
+    torch.cuda.empty_cache()
+    rec["moe_ep"] = _moe_ep_child(torch, rank)
+    with open(os.path.join(out_dir, "lm.%d.json" % rank), "w") as fh:
         json.dump(rec, fh)
     dist.barrier()
     dist.destroy_process_group()
@@ -4250,10 +4303,11 @@ def phase_lm_parallel(torch, smi: str) -> dict:
         "printed": lc["printed"], "job_s": lc["job_s"],
         "world1_s": lc["world1_s"]}
 
-    # (d) Ulysses and (e) GQA under tp, two ranks each
+    # (d) Ulysses and (e) GQA under tp: one launch of two ranks (which
+    # also runs phase moe's (c))
     work = tempfile.mkdtemp(prefix="edl-lmpar-")
     try:
-        uly = _two_ranks("ulysses", work)
+        ranks = _two_ranks(work)
         errs = {}
         for kv in ULYSSES_KV:
             q, k, v, g = _ulysses_inputs(torch, kv)
@@ -4272,12 +4326,12 @@ def phase_lm_parallel(torch, smi: str) -> dict:
                            1.0, w.float().abs().max().item()))
                 errs["kv%d/%s" % (kv, name)] = {"err": err, "tol": tol}
             del q, k, v, g, leaves, o, want, parts
-        tp = _two_ranks("tp", work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     res["ulysses"] = {"shape": list(ULYSSES_SHAPE), "kv": list(ULYSSES_KV),
                       "errors": errs,
-                      "launches": [r["launches"] for r in uly]}
+                      "launches": [r["ulysses_launches"] for r in ranks]}
+    tp = ranks
     t0r = tp[0]
     res["tp"] = {"cfg": TP_CFG, "loss": t0r["loss"],
                  "ref_loss": t0r["ref_loss"],
@@ -4291,6 +4345,7 @@ def phase_lm_parallel(torch, smi: str) -> dict:
                  "launches": [r["launches"] for r in tp]}
     res["seconds"] = time.monotonic() - t0
     emit(res)
+    res["tp_ranks"] = tp  # phase moe's (c), read there
 
     check(dcheck["logits_max_abs_err"] <= TOL_LOGITS_MAX
           and dcheck["logits_mean_abs_err"] <= TOL_LOGITS_MEAN,
@@ -4327,9 +4382,9 @@ def phase_lm_parallel(torch, smi: str) -> dict:
         check(e["err"] <= e["tol"], "lm_parallel (d): %s error %.3g > %.3g"
               % (name, e["err"], e["tol"]))
     want_uly = {k: len(ULYSSES_KV) for k in kernels}
-    check(all(r["launches"] == want_uly for r in uly),
+    check(all(r == want_uly for r in res["ulysses"]["launches"]),
           "lm_parallel (d): launches %s, want %s"
-          % ([r["launches"] for r in uly], want_uly))
+          % (res["ulysses"]["launches"], want_uly))
     tpr = res["tp"]
     check(tpr["loss_rel_err"] <= TOL_TP_LOSS
           and tpr["update_rel_l2"] <= TOL_TP_UPDATE
@@ -4342,6 +4397,362 @@ def phase_lm_parallel(torch, smi: str) -> dict:
     check(all(r["launches"] == want_tp for r in tp),
           "lm_parallel (e): launches %s, want %s"
           % (tpr["launches"], want_tp))
+    return res
+
+
+# phase moe. (a) the flagship LM with the JAX defaults' MoE (8 experts
+# in every second block: six MoE blocks, about 430 M parameters), bf16,
+# save_flash, 10 AdamW steps at [8, 2048] through
+# make_train_step(aux_losses=True).
+MOE_EXPERTS = 8
+MOE_EVERY = 2
+MOE_STEPS = TRAIN_STEPS
+MOE_LR = 1e-3
+# kernel-name markers of the MoE step's device-time classes, in order
+MOE_CLASSES = (
+    ("attention K1-K3", ("flash_",)),
+    ("matmul", ("gemm", "nvjet", "cutlass", "xmma", "splitK")),
+    ("dispatch", ("index", "scatter", "gather", "Gather", "TopK", "topk",
+                  "sort", "Sort", "scan", "Scan")),
+    ("optimizer", ("multi_tensor",)),
+)
+# (b) the card against the CPU from the same weights, fp32 (no TF32):
+# SwitchMoE at the flagship's widths at top_k 1 and 2, and a 2-layer MoE
+# LM's two AdamW steps. The two differ in summation order only: outputs
+# within 1e-5 of max(1, max|ref|), losses within 1e-5 relative, the
+# served routes equal
+MOE_CARD_X = (2, 256)
+MOE_CARD_LM = {"vocab_size": 1024, "d_model": 256, "num_heads": 4,
+               "num_layers": 2, "d_ff": 512, "num_experts": MOE_EXPERTS,
+               "moe_every": MOE_EVERY}
+MOE_CARD_BATCH = (2, 128)
+TOL_MOE_CARD = 1e-5
+# (c) ep 2 (two gloo ranks on the card, in phase lm_parallel's tp launch):
+# the MoE LM at the flagship's widths cut to 4 layers, fp32, 3 AdamW steps
+# (lr 1e-4) on a batch of 2 x 2048 against world 1 on the same card:
+# losses and aux losses within 1e-5 relative, the gathered parameters
+# within 1e-3 and each update within phase lm_parallel (e)'s 1e-2 relative
+# L2 (Adam normalises each gradient entry), each rank holding 4 of the 8
+# experts
+MOE_EP_CFG = {"vocab_size": 32000, "d_model": 1024, "num_heads": 16,
+              "num_layers": 4, "d_ff": 2688, "num_experts": MOE_EXPERTS,
+              "moe_every": MOE_EVERY}
+MOE_EP_BATCH = (2, 2048)
+MOE_EP_STEPS = 3
+MOE_EP_LR = 1e-4
+TOL_EP_LOSS = 1e-5
+TOL_EP_PARAM = 1e-3
+
+
+def _moe_ep_run(torch, mesh=None) -> dict:
+    """(c)'s run: ``MOE_EP_STEPS`` AdamW steps of the fp32 MoE LM with
+    the aux loss (its banks split over ``mesh``'s ep by ``MOE_EP_RULES``
+    when given); the losses, aux losses and the parameters before and
+    after, gathered."""
+    from edl_tpu_torch.models import MOE_EP_RULES, TransformerLM
+    from edl_tpu_torch.parallel import gather_params, shard_params_by_rules
+    from edl_tpu_torch.tools import lm_bench
+    from edl_tpu_torch.train import adamw, create_state, make_train_step
+
+    model = TransformerLM(dtype=torch.float32, device="cuda", **MOE_EP_CFG)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(11))
+    state = create_state(model, None, adamw(MOE_EP_LR), device="cuda")
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    if mesh is not None:
+        shard_params_by_rules(mesh, model, MOE_EP_RULES)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tok = torch.randint(0, MOE_EP_CFG["vocab_size"], MOE_EP_BATCH,
+                        device="cuda", generator=gen)
+    batch = (tok, torch.roll(tok, -1, dims=1))
+    step = make_train_step(lm_bench.lm_loss, aux_losses=True)
+    losses, aux = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_EP_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux_loss"]))
+    step_ms = (time.perf_counter() - t0) / MOE_EP_STEPS * 1e3
+    banks = {n: list(p.shape) for n, p in model.named_parameters()
+             if n.endswith((".moe.wi", ".moe.wo"))}
+    after = (gather_params(mesh, model) if mesh is not None
+             else {k: v.detach() for k, v in model.named_parameters()})
+    return {"losses": losses, "aux": aux, "step_ms": step_ms,
+            "banks": banks, "before": before, "after": after}
+
+
+def _moe_ep_child(torch, rank: int) -> dict:
+    """(c) in a rank of the tp launch: the ep 2 run, and on rank 0 the
+    world-1 run on the same card, compared."""
+    from edl_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"dp": 1, "ep": 2}, device="cuda")
+    run = _moe_ep_run(torch, mesh)
+    rec = {"mesh": mesh.shape, "ep_rank": mesh.ep_rank,
+           "losses": run["losses"], "aux": run["aux"],
+           "step_ms": run["step_ms"], "banks": run["banks"]}
+    if rank == 0:
+        after = {k: v.cpu() for k, v in run.pop("after").items()}
+        del run
+        torch.cuda.empty_cache()
+        ref = _moe_ep_run(torch, None)
+        errs, upd = {}, {}
+        for name, want in ref["after"].items():
+            got = after[name].to(want.device)
+            b = ref["before"][name]
+            errs[name] = (got - want).abs().max().item()
+            norm = (want - b).norm().item()
+            upd[name] = ((got - want).norm().item() / norm if norm
+                         else float("inf"))
+        rec.update(ref_losses=ref["losses"], ref_aux=ref["aux"],
+                   ref_step_ms=ref["step_ms"], ref_banks=ref["banks"],
+                   param_max_abs_err=max(errs.values()),
+                   update_rel_l2=max(upd.values()),
+                   worst_update=max(upd, key=upd.get))
+        del ref
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_card_vs_cpu(torch) -> dict:
+    """(b): SwitchMoE at top_k 1 and 2 and the small MoE LM's two fp32
+    AdamW steps on the card and on the CPU from the same weights."""
+    from edl_tpu_torch.models import SwitchMoE, TransformerLM
+    from edl_tpu_torch.tools import lm_bench
+    from edl_tpu_torch.train import adamw, create_state, make_train_step
+
+    import copy
+
+    d, f = FLAGSHIP_TRAIN["d_model"], FLAGSHIP_TRAIN["d_ff"]
+    out = {"switch": {}}
+    gen = torch.Generator().manual_seed(21)
+    x = torch.randn(*MOE_CARD_X, d, generator=gen)
+    for k in (1, 2):
+        runs = {}
+        moe = SwitchMoE(d, MOE_EXPERTS, f, top_k=k, dtype=torch.float32,
+                        device="cpu")
+        moe.init_weights(torch.Generator().manual_seed(22))
+        for dev in ("cuda", "cpu"):
+            here = copy.deepcopy(moe).to(dev)
+            with torch.no_grad():
+                y, aux = here(x.to(dev), return_aux=True)
+            runs[dev] = (y.cpu(), aux.item(), here.kept.cpu())
+        (yc, ac, kc), (yh, ah, kh) = runs["cuda"], runs["cpu"]
+        out["switch"]["top%d" % k] = {
+            "max_abs_err": (yc - yh).abs().max().item(),
+            "scale": max(1.0, yh.abs().max().item()),
+            "aux_rel_err": abs(ac - ah) / abs(ah),
+            "kept_equal": bool(torch.equal(kc, kh)),
+            "dropped_share": 1.0 - kh.float().mean().item()}
+    tok = torch.randint(0, MOE_CARD_LM["vocab_size"],
+                        (MOE_CARD_BATCH[0], MOE_CARD_BATCH[1] + 1),
+                        generator=torch.Generator().manual_seed(23))
+    lm = {}
+    seeded = TransformerLM(dtype=torch.float32, device="cpu", **MOE_CARD_LM)
+    seeded.init_weights(torch.Generator().manual_seed(24))
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(seeded)
+        state = create_state(model, None, adamw(MOE_LR), device=dev)
+        step = make_train_step(lm_bench.lm_loss, aux_losses=True)
+        batch = (tok[:, :-1].to(dev), tok[:, 1:].to(dev))
+        rec = {"losses": [], "aux": [], "kept": []}
+        for _ in range(2):
+            state, m = step(state, batch)
+            rec["losses"].append(float(m["loss"]))
+            rec["aux"].append(float(m["aux_loss"]))
+            rec["kept"].append([getattr(model, "layer_%d" % i).moe.kept.cpu()
+                                for i in range(model.num_layers)
+                                if hasattr(getattr(model, "layer_%d" % i),
+                                           "moe")])
+        lm[dev] = rec
+    out["lm"] = {
+        "losses": lm["cuda"]["losses"], "losses_cpu": lm["cpu"]["losses"],
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+            lm["cuda"]["losses"], lm["cpu"]["losses"])),
+        "aux": lm["cuda"]["aux"], "aux_cpu": lm["cpu"]["aux"],
+        "aux_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+            lm["cuda"]["aux"], lm["cpu"]["aux"])),
+        "kept_equal": all(torch.equal(a, b) for sa, sb in zip(
+            lm["cuda"]["kept"], lm["cpu"]["kept"]) for a, b in zip(sa, sb))}
+    return out
+
+
+def _moe_block_parts(torch, model, x) -> dict:
+    """One MoE block's forward by part at the step's shape (CUDA events,
+    the stream held): routing, the whole expert path (dispatch, the two
+    batched products, combine) and the two products alone on a buffer of
+    the same shape; and the block's forward + backward."""
+    moe = next(getattr(model, "layer_%d" % i).moe
+               for i in range(model.num_layers)
+               if hasattr(getattr(model, "layer_%d" % i), "moe"))
+    with torch.no_grad():
+        r = moe.route(x)
+        e, b, cap = moe.wi.shape[0], x.shape[0], r.capacity
+        buf = torch.randn(e, b * cap, x.shape[-1], device=x.device,
+                          dtype=moe.dtype)
+        wi, wo = moe.wi.to(moe.dtype), moe.wo.to(moe.dtype)
+        parts = {
+            "route_ms": time_ms(torch, lambda: moe.route(x)),
+            "experts_ms": time_ms(torch, lambda: moe.experts_out(x, r)),
+            "bmm_ms": time_ms(torch, lambda: torch.bmm(
+                torch.nn.functional.gelu(torch.bmm(buf, wi),
+                                         approximate="tanh"), wo)),
+        }
+    xg = x.detach().clone().requires_grad_(True)
+
+    def fwd_bwd():
+        out, aux = moe(xg, return_aux=True)
+        (out.float().sum() + aux).backward()
+
+    parts["forward_backward_ms"] = time_ms(torch, fwd_bwd)
+    moe.zero_grad(set_to_none=True)
+    parts["dispatch_combine_ms"] = parts["experts_ms"] - parts["bmm_ms"]
+    parts["capacity"] = cap
+    return parts
+
+
+def phase_moe(torch, smi: str, lmp: dict) -> dict:
+    """The Switch MoE FFN (see the module docstring): (a) the flagship MoE
+    LM's ten training steps with the aux loss, (b) the card against the
+    CPU, (c) ep 2 (run by phase lm_parallel's tp launch, read from
+    ``lmp``)."""
+    from edl_tpu_torch.models import TransformerLM
+    from edl_tpu_torch.tools import lm_bench
+    from edl_tpu_torch.train import adamw, create_state, make_train_step
+
+    t0 = time.monotonic()
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    cfg = FLAGSHIP_TRAIN
+    res = {"phase": "moe", "card": smi}
+
+    # (a) the flagship MoE LM, bf16, save_flash
+    model = TransformerLM(
+        vocab_size=cfg["vocab_size"], d_model=cfg["d_model"],
+        num_heads=cfg["num_heads"], num_layers=cfg["num_layers"],
+        d_ff=cfg["d_ff"], remat=True, remat_policy=cfg["remat"],
+        num_experts=MOE_EXPERTS, moe_every=MOE_EVERY, device="cuda")
+    state = create_state(model, 0, adamw(MOE_LR), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg["vocab_size"],
+                           (cfg["batch"], cfg["seq"] + 1), device="cuda",
+                           generator=gen)
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    step = make_train_step(lm_bench.lm_loss, aux_losses=True)
+    moe_layers = [i for i in range(model.num_layers)
+                  if hasattr(getattr(model, "layer_%d" % i), "moe")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()  # the moe path starts here
+    losses, aux = [], []
+    t1 = time.perf_counter()
+    for i in range(MOE_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+        aux.append(m["aux_loss"])
+        if i == 0:
+            torch.cuda.synchronize()  # the first step builds cuBLAS plans
+            t1 = time.perf_counter()
+    losses = [float(v) for v in torch.stack(losses).tolist()]
+    aux = [float(v) for v in torch.stack(aux).tolist()]
+    step_ms = (time.perf_counter() - t1) / (MOE_STEPS - 1) * 1e3
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    dropped = {"layer_%d" % i: 1.0 - getattr(
+        model, "layer_%d" % i).moe.kept.float().mean().item()
+        for i in moe_layers}
+    t1 = time.perf_counter()
+    state, _ = step(state, batch)
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    profile = _device_breakdown(torch, lambda: step(state, batch),
+                                classes=MOE_CLASSES)
+    params = sum(p.numel() for p in model.parameters())
+    h = torch.randn(cfg["batch"], cfg["seq"], cfg["d_model"], device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    parts = _moe_block_parts(torch, model, h)
+    del state, model, h
+    torch.cuda.empty_cache()
+    res["train"] = {
+        "tokens": [cfg["batch"], cfg["seq"]], "layers": cfg["num_layers"],
+        "moe_layers": moe_layers, "num_experts": MOE_EXPERTS,
+        "parameters": params, "losses": losses, "aux_loss": aux,
+        "step_ms": step_ms, "host_enqueue_ms": enqueue_ms,
+        "tokens_per_s": cfg["batch"] * cfg["seq"] / step_ms * 1e3,
+        "device_ms": profile["device_ms"],
+        "device_idle_share": profile["device_idle_share"],
+        "device_ms_by_class": profile["by_class_ms"],
+        "profile_top": profile["top"], "peak_memory_bytes": peak,
+        "launches": launches,
+        "launches_per_step": {k: v / MOE_STEPS for k, v in launches.items()},
+        "dropped_share": dropped, "block_parts": parts}
+    emit(dict(res["train"], phase="moe_train", card=smi))
+
+    # (b) the card against the CPU
+    saved_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        res["card_vs_cpu"] = _moe_card_vs_cpu(torch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+
+    # (c) ep 2, from phase lm_parallel's tp launch
+    ep = [r["moe_ep"] for r in lmp["tp_ranks"]]
+    e0 = ep[0]
+    res["ep"] = {
+        "cfg": MOE_EP_CFG, "batch": list(MOE_EP_BATCH),
+        "mesh": e0["mesh"], "losses": e0["losses"],
+        "losses_world1": e0["ref_losses"],
+        "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+            e0["losses"], e0["ref_losses"])),
+        "aux": e0["aux"], "aux_world1": e0["ref_aux"],
+        "aux_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+            e0["aux"], e0["ref_aux"])),
+        "ranks_agree": all(r["losses"] == e0["losses"]
+                           and r["aux"] == e0["aux"] for r in ep),
+        "param_max_abs_err": e0["param_max_abs_err"],
+        "update_rel_l2": e0["update_rel_l2"],
+        "worst_update": e0["worst_update"],
+        "banks": [r["banks"] for r in ep], "banks_world1": e0["ref_banks"],
+        "step_ms": [r["step_ms"] for r in ep],
+        "step_ms_world1": e0["ref_step_ms"]}
+    res["seconds"] = time.monotonic() - t0
+    emit(res)
+
+    tr = res["train"]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          "moe (a): losses %s" % losses)
+    check(all(math.isfinite(v) and v > 0 for v in aux),
+          "moe (a): aux losses %s" % aux)
+    want = {k: cfg["num_layers"] * MOE_STEPS for k in kernels}
+    check(tr["launches"] == want, "moe (a): launches %s, want %s"
+          % (tr["launches"], want))
+    check(len(moe_layers) == cfg["num_layers"] // MOE_EVERY,
+          "moe (a): MoE blocks %s" % moe_layers)
+    for k, sw in res["card_vs_cpu"]["switch"].items():
+        check(sw["max_abs_err"] <= TOL_MOE_CARD * sw["scale"]
+              and sw["aux_rel_err"] <= TOL_MOE_CARD and sw["kept_equal"],
+              "moe (b): SwitchMoE %s card vs CPU %s" % (k, sw))
+    lmr = res["card_vs_cpu"]["lm"]
+    check(lmr["loss_rel_err"] <= TOL_MOE_CARD
+          and lmr["aux_rel_err"] <= TOL_MOE_CARD and lmr["kept_equal"],
+          "moe (b): the MoE LM card vs CPU %s" % lmr)
+    epr = res["ep"]
+    check(epr["ranks_agree"] and epr["loss_rel_err"] <= TOL_EP_LOSS
+          and epr["aux_rel_err"] <= TOL_EP_LOSS,
+          "moe (c): ep 2 losses %s aux %s vs world 1 %s %s"
+          % (epr["losses"], epr["aux"], epr["losses_world1"],
+             epr["aux_world1"]))
+    check(epr["param_max_abs_err"] <= TOL_EP_PARAM
+          and epr["update_rel_l2"] <= TOL_TP_UPDATE,
+          "moe (c): parameters %.3g, update %.3g (%s)"
+          % (epr["param_max_abs_err"], epr["update_rel_l2"],
+             epr["worst_update"]))
+    half = MOE_EXPERTS // 2
+    check(all(shape[0] == half for banks in epr["banks"]
+              for shape in banks.values())
+          and all(shape[0] == MOE_EXPERTS
+                  for shape in epr["banks_world1"].values()),
+          "moe (c): banks %s" % epr["banks"])
     return res
 
 
@@ -4368,6 +4779,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke.py: CUDA is not available\n")
         return 3
+    # The card's machine runs Python with PYTHONDONTWRITEBYTECODE and no
+    # bytecode beside torch's sources, so every interpreter compiled them
+    # anew: most of a worker's import_s and create_state_s (torch.optim
+    # imports torch._dynamo) in phase elastic's records. From here on
+    # this process and every one it starts keep their bytecode in the
+    # checkout's .pycache/.
+    cache = os.path.join(HERE, ".pycache")
+    sys.pycache_prefix = cache
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     if sys.argv[1:2] == ["--elastic-child"]:
         elastic_child(torch, sys.argv[2])
         return 0
@@ -4381,25 +4803,51 @@ def main() -> int:
         fsdp_launched(torch, sys.argv[2], sys.argv[3])
         return 0
     if sys.argv[1:2] == ["--lm-launched"]:
-        lm_parallel_child(torch, sys.argv[2], sys.argv[3], int(sys.argv[4]),
-                          int(sys.argv[5]))
+        lm_parallel_child(torch, sys.argv[2], int(sys.argv[3]),
+                          int(sys.argv[4]))
         return 0
+    # each phase's wall seconds, emitted before the kernels line
+    marks = [time.monotonic()]
+    seconds = {}
+
+    def done(name):
+        marks.append(time.monotonic())
+        seconds[name] = marks[-1] - marks[-2]
+
     dev = phase_device(torch)
     phase_build()
+    done("device+build")
     kernels = phase_kernels(torch)
     bwd = phase_kernels_bwd(torch)
+    done("kernels")
     model = phase_model(torch, dev["nvidia_smi"])
     serve = phase_serve(torch, model)
     del model
     torch.cuda.empty_cache()
+    done("model+serve")
     train = phase_train(torch, dev["nvidia_smi"])
+    done("train")
     elastic = phase_elastic(torch, dev["nvidia_smi"], train)
-    tiers = phase_tiers(torch, dev["nvidia_smi"])
-    phase_trainee(torch, dev["nvidia_smi"])
+    done("elastic")
+    # phase trainee (its own store and launchers around a quadratic bowl
+    # that barely uses the card, mostly waiting on process starts) runs
+    # beside phase tiers; an exception of either is raised once both end
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        trainee = pool.submit(phase_trainee, torch, dev["nvidia_smi"])
+        tiers = phase_tiers(torch, dev["nvidia_smi"])
+        trainee.result()
+    done("tiers+trainee")
     phase_resnet(torch, dev["nvidia_smi"])
+    done("resnet")
     phase_fsdp(torch, dev["nvidia_smi"])
+    done("fsdp")
     distill = phase_distill(torch, dev["nvidia_smi"])
+    done("distill")
     lmp = phase_lm_parallel(torch, dev["nvidia_smi"])
+    done("lm_parallel")
+    moe = phase_moe(torch, dev["nvidia_smi"], lmp)
+    done("moe")
+    emit({"phase_seconds": seconds, "total_s": marks[-1] - marks[0]})
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")
@@ -4423,7 +4871,8 @@ def main() -> int:
                                  nlp["student_launches"]["flash_fwd"],
                              "distill_teacher":
                                  nlp["teacher_launches"]["flash_fwd"],
-                             **_lm_paths(lmp, "flash_fwd")},
+                             **_lm_paths(lmp, "flash_fwd"),
+                             "moe": moe["train"]["launches"]["flash_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -4456,7 +4905,8 @@ def main() -> int:
                                  "tiers": tiers["launches"][name],
                                  "distill_student":
                                      nlp["student_launches"][name],
-                                 **_lm_paths(lmp, name)},
+                                 **_lm_paths(lmp, name),
+                                 "moe": moe["train"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),

@@ -17,8 +17,15 @@ batch-norm model's ``batch_stats`` collection (``.../BatchNorm_0/mean``,
     layer_i/attn/{q,k,v}/kernel [d, H|KV, D]
     layer_i/attn/o/kernel      [H, D, d]
     layer_i/mlp/{gate,up,down}/kernel
+    layer_i/moe/router/kernel  [d, E]     (a MoE block, in place of mlp)
+    layer_i/moe/wi             [E, d, F]
+    layer_i/moe/wo             [E, F, d]
     ln_f/scale                 [d]
     lm_head/kernel             [d, V]
+
+A model whose expert banks are split over ``ep`` (or tensor-parallel
+weights over ``tp``) converts from ``parallel.gather_params``, which
+reassembles them.
 
 A tree is a nested dict of numpy arrays (``state.params``, the
 ``{"params": ...}`` dict ``Module.init`` returns, or ``{"params": ...,

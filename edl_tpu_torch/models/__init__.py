@@ -8,6 +8,7 @@ from edl_tpu_torch.models.resnet import (
     ResNeXt101_32x16d,
 )
 from edl_tpu_torch.models.decode import greedy_generate, init_cache
+from edl_tpu_torch.models.moe import MOE_EP_RULES, SwitchMoE
 from edl_tpu_torch.models.transformer import TransformerLM
 
 __all__ = [
@@ -20,6 +21,8 @@ __all__ = [
     "ResNeXt50_32x4d",
     "ResNeXt101_32x16d",
     "TransformerLM",
+    "SwitchMoE",
+    "MOE_EP_RULES",
     "greedy_generate",
     "init_cache",
 ]

@@ -6,7 +6,10 @@ single-token step. The step's shapes are static (the cache is
 ``max_decode_len`` long, its validity masked by the running index, the
 index a device tensor), so a later change can capture it in a CUDA graph.
 With grouped-query models the cache is stored at ``num_kv_heads`` width
-(under tensor parallelism: the rank's kv heads), in the compute dtype.
+(under tensor parallelism: the rank's kv heads), in the compute dtype. A
+MoE model's blocks route the prefill's prompt with the prompt's capacity
+and each single-token step with one slot an expert and row, as the JAX
+decode does.
 
 Usage::
 

@@ -41,7 +41,7 @@ layers) sees k/v repeated to the query heads; ring and Ulysses attention
 
 Tensor parallelism: ``parallel.shard_params_by_rules(mesh, model,
 TRANSFORMER_TP_RULES)`` keeps each rank's slice of the weights and calls
-:meth:`TransformerLM.install_tp`, which switches the attention, the MLP,
+:meth:`TransformerLM.install_parallel`, which switches the attention, the MLP,
 the embedding and the head to their Megatron forwards over the mesh's
 ``tp`` group: column-parallel products take their input through
 ``copy_to_group`` (all-reduce backward), row-parallel ones sum their
@@ -65,7 +65,17 @@ every shape is static (the cache is ``max_decode_len`` long). Prefill
 (T > 1) and the single-token step run the same masked products, in plain
 PyTorch as in the JAX model, which has no kernel there.
 
-``num_experts > 0`` waits for ROADMAP M15.
+Mixture of experts: with ``num_experts > 0`` every ``moe_every``-th block
+(``(i + 1) % moe_every == 0``) runs :class:`~edl_tpu_torch.models.moe.
+SwitchMoE` under the name ``moe`` in place of the SwiGLU ``mlp``, as the
+JAX model does. Each block returns its aux loss beside its output (a
+remat recompute returns its own, which the checkpoint drops), and the
+model keeps the forward's terms in ``aux_losses``, which
+``make_train_step(aux_losses=True)`` adds to the loss. A decode step
+routes its T new tokens with the capacity of T (one slot an expert and
+row for a single token), as the JAX decode does.
+:meth:`TransformerLM.install_parallel` also switches the MoE blocks to
+expert parallelism where the rules split their banks over ``ep``.
 """
 
 from __future__ import annotations
@@ -78,6 +88,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from edl_tpu_torch.models.moe import SwitchMoE
 from edl_tpu_torch.ops.attention import attention
 from edl_tpu_torch.parallel.collectives import (
     copy_to_group,
@@ -345,19 +356,28 @@ class SwiGLU(nn.Module):
 
 
 class Block(nn.Module):
+    """Pre-norm attention and FFN: the SwiGLU ``mlp``, or with
+    ``num_experts > 0`` the ``moe`` (:class:`SwitchMoE`)."""
+
     def __init__(self, d_model: int, num_heads: int, d_ff: int, dtype,
                  param_dtype, num_kv_heads: Optional[int] = None,
-                 device=None, attention_fn=None) -> None:
+                 device=None, attention_fn=None, num_experts: int = 0) -> None:
         super().__init__()
         self.ln1 = RMSNorm(d_model, device=device)
         self.attn = Attention(d_model, num_heads, dtype, param_dtype,
                               num_kv_heads, device, attention_fn)
         self.ln2 = RMSNorm(d_model, device=device)
-        self.mlp = SwiGLU(d_model, d_ff, dtype, param_dtype, device)
+        if num_experts > 0:
+            self.moe = SwitchMoE(d_model, num_experts, d_ff, dtype=dtype,
+                                 param_dtype=param_dtype, device=device)
+        else:
+            self.mlp = SwiGLU(d_model, d_ff, dtype, param_dtype, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                remat: Optional[str] = None) -> torch.Tensor:
-        """``remat``: None (no checkpoint) or a ``remat_policy`` name."""
+                remat: Optional[str] = None):
+        """``(out, aux)``: the aux loss of a MoE block (0-d fp32), None for
+        a SwiGLU one. ``remat``: None (no checkpoint) or a
+        ``remat_policy`` name."""
         if remat is None:
             return self._block(x, positions)
         ckpt = functools.partial(checkpoint, use_reentrant=False,
@@ -375,18 +395,25 @@ class Block(nn.Module):
         h, entries = self.attn.decode(self.ln1(x), positions, cache,
                                       prefix + "attn/")
         x = x + h
-        return x + self.mlp(self.ln2(x)), entries
+        return x + self._ffn(self.ln2(x))[0], entries
+
+    def _ffn(self, h):
+        if hasattr(self, "moe"):
+            return self.moe(h, return_aux=True)
+        return self.mlp(h), None
+
+    def _residual_ffn(self, x):
+        y, aux = self._ffn(self.ln2(x))
+        return x + y, aux
 
     def _block(self, x, positions):
-        x = x + self.attn(self.ln1(x), positions)
-        return x + self.mlp(self.ln2(x))
+        return self._residual_ffn(x + self.attn(self.ln1(x), positions))
 
     def _qkv(self, x, positions):
         return self.attn.qkv(self.ln1(x), positions)
 
     def _after_attention(self, x, o):
-        x = x + self.attn.out(o)
-        return x + self.mlp(self.ln2(x))
+        return self._residual_ffn(x + self.attn.out(o))
 
 
 class Embed(nn.Module):
@@ -473,8 +500,9 @@ class TransformerLM(nn.Module):
     seeded ``torch.Generator`` or load converted weights
     (:func:`edl_tpu_torch.convert.load_params`). ``dtype`` is the compute
     type. ``remat``/``remat_policy``: see the module docstring; the policy
-    may be changed between steps. ``attention_fn``, ``decode`` and
-    ``max_decode_len``: see the module docstring."""
+    may be changed between steps. ``attention_fn``, ``decode``,
+    ``max_decode_len``, ``num_experts`` and ``moe_every``: see the module
+    docstring."""
 
     def __init__(
         self,
@@ -489,16 +517,13 @@ class TransformerLM(nn.Module):
         remat_policy: Optional[str] = "save_flash",
         num_kv_heads: Optional[int] = None,
         num_experts: int = 0,
+        moe_every: int = 2,
         decode: bool = False,
         max_decode_len: int = 2048,
         attention_fn=None,
         device=None,
     ) -> None:
         super().__init__()
-        if num_experts > 0:
-            raise NotImplementedError(
-                "num_experts > 0 (SwitchMoE FFN) is ROADMAP M15, not ported yet"
-            )
         if remat_policy not in REMAT_POLICIES:
             raise ValueError("unknown remat_policy %r" % (remat_policy,))
         self.num_layers = num_layers
@@ -507,39 +532,56 @@ class TransformerLM(nn.Module):
         self.decode = decode
         self.max_decode_len = max_decode_len
         self.dtype = dtype
+        self.num_experts = num_experts
+        self.moe_every = moe_every
+        self.aux_losses: list = []
         self.embed = Embed(vocab_size, d_model, dtype, param_dtype, device)
         for i in range(num_layers):
             self.add_module(
                 "layer_%d" % i,
                 Block(d_model, num_heads, d_ff, dtype, param_dtype,
-                      num_kv_heads, device, attention_fn),
+                      num_kv_heads, device, attention_fn,
+                      num_experts if num_experts > 0
+                      and (i + 1) % moe_every == 0 else 0),
             )
         self.ln_f = RMSNorm(d_model, device=device)
         self.lm_head = LMHead(d_model, vocab_size, param_dtype, device)
 
-    def install_tp(self, mesh, specs) -> list:
-        """The tensor-parallel forward over ``mesh``'s ``tp`` group, given
-        every parameter's resolved spec (``parallel.shard_params_by_rules``
-        calls it after slicing the parameters); returns the parameters
-        whose gradients are partial on each rank (summed over ``tp``)."""
+    def install_parallel(self, mesh, specs) -> list:
+        """The forward over ``mesh``, given every parameter's resolved spec
+        (``parallel.shard_params_by_rules`` calls it after slicing the
+        parameters): the MoE blocks' expert, sequence and data
+        parallelism (:meth:`SwitchMoE.install_parallel`), and at ``tp`` > 1
+        the tensor-parallel forward over the ``tp`` group. Returns the
+        parameters whose gradients are partial on each rank (summed over
+        ``tp``)."""
+        def local(prefix):
+            return {n[len(prefix):].removesuffix(".kernel"): s
+                    for n, s in specs.items() if n.startswith(prefix)}
+
+        layers = [getattr(self, "layer_%d" % i)
+                  for i in range(self.num_layers)]
+        for i, layer in enumerate(layers):
+            if hasattr(layer, "moe"):
+                layer.moe.install_parallel(mesh, local("layer_%d.moe." % i))
         if mesh.tp_size == 1:
             return []
         partial = []
         for prefix, mod in [("embed.", self.embed),
                             ("lm_head.", self.lm_head)] + [
-                ("layer_%d.%s." % (i, part),
-                 getattr(getattr(self, "layer_%d" % i), part))
-                for i in range(self.num_layers) for part in ("attn", "mlp")]:
-            local = {n[len(prefix):].removesuffix(".kernel"): s
-                     for n, s in specs.items() if n.startswith(prefix)}
-            partial += [prefix + n for n in mod.install_tp(mesh, local)]
+                ("layer_%d.%s." % (i, part), getattr(layer, part))
+                for i, layer in enumerate(layers)
+                for part in ("attn", "mlp") if hasattr(layer, part)]:
+            partial += [prefix + n
+                        for n in mod.install_tp(mesh, local(prefix))]
         return partial
 
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None, cache=None):
         """``fp32 logits [B, T, vocab]``; in decode mode ``(logits,
         cache)``, the cache given (or a zero one) with the new keys and
-        values in place and every ``cache_index`` advanced by T."""
+        values in place and every ``cache_index`` advanced by T. Outside
+        decode mode the MoE blocks' aux losses land in ``aux_losses``."""
         x = self.embed(tokens)
         if positions is None:
             positions = torch.arange(
@@ -559,23 +601,28 @@ class TransformerLM(nn.Module):
         remat = None
         if self.remat and torch.is_grad_enabled():
             remat = self.remat_policy or "full"
+        aux_losses = []
         for i in range(self.num_layers):
-            x = getattr(self, "layer_%d" % i)(x, positions, remat)
+            x, aux = getattr(self, "layer_%d" % i)(x, positions, remat)
+            if aux is not None:
+                aux_losses.append(aux)
+        self.aux_losses = aux_losses
         return self.lm_head(self.ln_f(x))
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TransformerLM":
         """Seeded random weights: kernels ~ N(0, 1/fan_in) (LeCun normal,
-        fan_in = the contracted axes), embeddings ~ N(0, 1), norm scales
-        1. Drawn in fp32 on the generator's device, in ``named_parameters``
-        order, then cast to each parameter's dtype."""
+        fan_in = the contracted axes; of a MoE bank ``[E, in, out]``,
+        flax's ``E · in``), embeddings ~ N(0, 1), norm scales 1. Drawn in
+        fp32 on the generator's device, in ``named_parameters`` order, then
+        cast to each parameter's dtype."""
         for name, p in self.named_parameters():
             if name.endswith(".scale"):
                 p.fill_(1.0)
                 continue
             if name.endswith("embedding"):
                 std = 1.0
-            elif name.endswith("attn.o.kernel"):
+            elif name.endswith(("attn.o.kernel", "moe.wi", "moe.wo")):
                 std = (p.shape[0] * p.shape[1]) ** -0.5
             else:
                 std = p.shape[0] ** -0.5

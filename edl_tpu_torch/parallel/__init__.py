@@ -1,6 +1,7 @@
-"""Parallelism: data parallelism, FSDP, tensor parallelism by rules, and
-ring and Ulysses sequence parallelism (``edl_tpu.parallel``'s surface
-short of pipelines and MoE)."""
+"""Parallelism: data parallelism, FSDP, tensor and expert parallelism by
+rules, and ring and Ulysses sequence parallelism (``edl_tpu.parallel``'s
+surface short of pipelines). ``SwitchMoE`` and ``MOE_EP_RULES`` live in
+``models.moe`` and are also found here."""
 
 from edl_tpu_torch.parallel.mesh import (
     Mesh,
@@ -51,4 +52,15 @@ __all__ = [
     "gather_params",
     "shard_params_by_rules",
     "spec_for_path",
+    "MOE_EP_RULES",
+    "SwitchMoE",
 ]
+
+
+def __getattr__(name):
+    # models.moe imports this package's collectives: resolved on first use
+    if name in ("MOE_EP_RULES", "SwitchMoE"):
+        from edl_tpu_torch.models import moe
+
+        return getattr(moe, name)
+    raise AttributeError("module %r has no attribute %r" % (__name__, name))

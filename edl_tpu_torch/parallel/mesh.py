@@ -1,13 +1,14 @@
 """The stage's mesh: the port of ``edl_tpu/parallel/mesh.py`` over the
-axes the port runs: data parallelism, FSDP, tensor parallelism (``tp``)
-and sequence parallelism (``sp``).
+axes the port runs: data parallelism, FSDP, tensor parallelism (``tp``),
+sequence parallelism (``sp``) and expert parallelism (``ep``).
 
 The JAX package shards over a ``jax.sharding.Mesh`` and lets XLA insert the
 collectives. Here the mesh is the stage's process group, one device per
 process (``init`` selected it), laid out row-major in the JAX package's
-axis order ``("dp", "fsdp", "tp", "sp")``: ``sp`` varies fastest, so rank
-``r`` of a ``dp × tp × sp`` mesh holds ``sp`` index ``r % sp``, ``tp``
-index ``r // sp % tp`` and ``dp`` index ``r // (tp·sp)`` (of a
+axis order ``("dp", "fsdp", "tp", "sp", "ep")``: the last axis varies
+fastest, so rank ``r`` of a ``dp × tp × sp × ep`` mesh holds ``ep`` index
+``r % ep``, ``sp`` index ``r // ep % sp``, ``tp`` index
+``r // (sp·ep) % tp`` and ``dp`` index ``r // (tp·sp·ep)`` (of a
 ``dp × fsdp`` mesh: ``dp`` index ``r // fsdp``, ``fsdp`` index
 ``r % fsdp``).
 
@@ -33,17 +34,19 @@ over ``dp`` only (``batch_sharding`` is ``P("dp")``): the ranks of one
 ``fsdp`` group pass the same rows, and the global batch is the ``dp``
 groups' rows concatenated in ``dp`` order.
 
-- Tensor and sequence parallelism: at ``tp`` or ``sp`` > 1 the mesh
-  builds, collectively and once, the process groups over ``tp``, ``sp``,
-  ``dp`` and ``dp × sp`` (:meth:`Mesh.group`). ``parallel.sharding_rules``
-  shards the TransformerLM's weights over ``tp`` and averages gradients
-  over ``dp × sp``; ring and Ulysses attention run over ``sp``
-  (:func:`sharded_seq_attention`). A rank holds its ``dp`` rows and its
+- Tensor, sequence and expert parallelism: at ``tp``, ``sp`` or ``ep``
+  > 1 the mesh builds, collectively and once, the process groups over
+  ``tp``, ``sp``, ``ep``, ``dp`` and ``dp × sp`` (:meth:`Mesh.group`).
+  ``parallel.sharding_rules`` shards the TransformerLM's weights over
+  ``tp`` and its MoE blocks' expert banks over ``ep``, and averages
+  gradients over ``dp × sp``; ring and Ulysses attention run over ``sp``
+  (:func:`sharded_seq_attention`). A rank holds its ``dp`` rows (the
+  ranks of one ``tp``, ``sp`` or ``ep`` group hold the same ones) and its
   ``sp`` chunk of the sequence (:func:`shard_seq`, global RoPE positions
-  from :func:`seq_positions`). ``fsdp`` does not combine with ``tp`` or
-  ``sp`` in the port yet.
+  from :func:`seq_positions`). ``fsdp`` does not combine with ``tp``,
+  ``sp`` or ``ep`` in the port (left out of ROADMAP M12-M15).
 
-``ep`` waits for ROADMAP M15; axes of size 1 are kept in ``Mesh.shape``.
+Axes of size 1 are kept in ``Mesh.shape``.
 """
 
 from __future__ import annotations
@@ -60,15 +63,11 @@ from edl_tpu_torch.utils.device import resolve_device
 
 DEFAULT_AXES = ("dp", "fsdp", "tp", "sp", "ep")
 
-_NOT_PORTED = {
-    "ep": "ROADMAP M15",
-}
-
 # the stage's DeviceMesh, built once per process group (its sub-groups are
 # collective to create) and dropped with the group
 # (train.context._teardown_group): (key, DeviceMesh)
 _stage_mesh: Optional[Tuple[tuple, object]] = None
-# the sub-groups of a tp/sp mesh, built once per process group and layout:
+# the sub-groups of a tp/sp/ep mesh, built once per process group and layout:
 # (key, {axes tuple: this rank's group})
 _stage_groups: Optional[Tuple[tuple, dict]] = None
 
@@ -119,13 +118,13 @@ def _axes_key(shape: Dict[str, int], axes) -> tuple:
 
 
 def _build_groups(shape: Dict[str, int], rank: int) -> dict:
-    """This rank's process group over each of ``tp``, ``sp``, ``dp`` and
-    ``dp × sp`` (collective: every rank creates every group, in one
-    order); an axis set of one rank gets None."""
+    """This rank's process group over each of ``tp``, ``sp``, ``ep``,
+    ``dp`` and ``dp × sp`` (collective: every rank creates every group, in
+    one order); an axis set of one rank gets None."""
     world = math.prod(shape.values())
     coords = [_coords(shape, r) for r in range(world)]
     out = {}
-    for axes in (("tp",), ("sp",), ("dp",), ("dp", "sp")):
+    for axes in (("tp",), ("sp",), ("ep",), ("dp",), ("dp", "sp")):
         key = _axes_key(shape, axes)
         if math.prod(shape[a] for a in key) == 1:
             out[key] = None
@@ -142,8 +141,8 @@ def _build_groups(shape: Dict[str, int], rank: int) -> dict:
 
 
 class Mesh:
-    """The stage's axes (``shape``: ``dp``, ``fsdp``, ``tp``, ``sp`` and
-    the axes of size 1 the caller named), this rank's place on them
+    """The stage's axes (``shape``: ``dp``, ``fsdp``, ``tp``, ``sp``, ``ep``
+    and the axes of size 1 the caller named), this rank's place on them
     (``coords``) and its ``device``."""
 
     def __init__(self, shape: Dict[str, int], rank: int,
@@ -172,10 +171,14 @@ class Mesh:
         return self.shape.get("sp", 1)
 
     @property
+    def ep_size(self) -> int:
+        return self.shape.get("ep", 1)
+
+    @property
     def dp_rank(self) -> int:
         """This rank's ``dp`` index: which rows of the global batch it
-        holds (the ranks of one ``fsdp``, ``tp`` or ``sp`` group hold the
-        same ones)."""
+        holds (the ranks of one ``fsdp``, ``tp``, ``sp`` or ``ep`` group
+        hold the same ones)."""
         return self.coords.get("dp", 0)
 
     @property
@@ -192,14 +195,20 @@ class Mesh:
         return self.coords.get("sp", 0)
 
     @property
+    def ep_rank(self) -> int:
+        """This rank's ``ep`` index: which experts of a split bank it
+        holds."""
+        return self.coords.get("ep", 0)
+
+    @property
     def model_parallel(self) -> bool:
-        """True when ``tp`` or ``sp`` is above 1."""
-        return self.tp_size > 1 or self.sp_size > 1
+        """True when ``tp``, ``sp`` or ``ep`` is above 1."""
+        return self.tp_size > 1 or self.sp_size > 1 or self.ep_size > 1
 
     @property
     def device_mesh(self):
         """The ``("dp", "fsdp")`` DeviceMesh of the stage's process group
-        (None without one, and on a tp/sp mesh, whose groups are
+        (None without one, and on a tp/sp/ep mesh, whose groups are
         :meth:`group`'s); its ``"dp"`` and ``"fsdp"`` sub-meshes carry
         their own groups. Built at the first use in a stage, collectively."""
         if not _joined() or self.model_parallel:
@@ -209,7 +218,8 @@ class Mesh:
     def group(self, axes):
         """The process group over ``axes`` (an axis name, or a tuple of
         them such as ``("dp", "sp")``) that holds this rank; None without
-        a process group, and on a tp/sp mesh where the axes span one rank."""
+        a process group, and on a tp/sp/ep mesh where the axes span one
+        rank."""
         if self.model_parallel:
             if not _joined():
                 return None
@@ -255,14 +265,13 @@ def _model_groups(mesh: Mesh) -> dict:
 def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
     """The stage's mesh over every rank of the process group (one rank and
     no group in a one-worker stage). ``axes`` may name ``dp``, ``fsdp``,
-    ``tp`` and ``sp`` at any sizes whose product is the world, one of them
-    ``-1`` (it fills), and other axes at size 1; a larger ``ep`` raises,
-    naming the ROADMAP item it waits for, and so does ``fsdp`` > 1 beside
-    ``tp`` or ``sp`` > 1. ``device`` is the card unless the caller names
-    the CPU; on the card, the device ``init`` selected. At ``fsdp`` > 1
-    the DeviceMesh and its sub-groups are built now (collective), so that
-    batch norm finds its ``dp`` group; at ``tp`` or ``sp`` > 1 the
-    :meth:`Mesh.group` sub-groups are."""
+    ``tp``, ``sp`` and ``ep`` at any sizes whose product is the world, one
+    of them ``-1`` (it fills), and other axes at size 1; ``fsdp`` > 1
+    beside ``tp``, ``sp`` or ``ep`` > 1 raises. ``device`` is the card
+    unless the caller names the CPU; on the card, the device ``init``
+    selected. At ``fsdp`` > 1 the DeviceMesh and its sub-groups are built
+    now (collective), so that batch norm finds its ``dp`` group; at
+    ``tp``, ``sp`` or ``ep`` > 1 the :meth:`Mesh.group` sub-groups are."""
     joined = _joined()
     world = dist.get_world_size() if joined else 1
     rank = dist.get_rank() if joined else 0
@@ -277,20 +286,20 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
                              % (fills[0], world, fixed))
         axes[fills[0]] = world // fixed
     for name, size in axes.items():
-        if name in ("dp", "fsdp", "tp", "sp") or size == 1:
+        if name in DEFAULT_AXES or size == 1:
             continue
         raise NotImplementedError(
-            "mesh axis %r waits for %s of the port"
-            % (name, _NOT_PORTED.get(name, "a later slice"))
-        )
-    if axes.get("fsdp", 1) > 1 and (axes.get("tp", 1) > 1
-                                    or axes.get("sp", 1) > 1):
+            "mesh axis %r: the port shards over %s only"
+            % (name, DEFAULT_AXES))
+    if axes.get("fsdp", 1) > 1 and any(axes.get(a, 1) > 1
+                                       for a in ("tp", "sp", "ep")):
         raise NotImplementedError(
-            "fsdp > 1 beside tp or sp > 1 is not ported yet: %r" % (axes,))
+            "fsdp > 1 beside tp, sp or ep > 1 is not ported (left out of "
+            "ROADMAP M12-M15): %r" % (axes,))
     if math.prod(axes.values()) != world:
         raise ValueError("axes %r do not cover %d ranks" % (axes, world))
     axes.setdefault("dp", 1)
-    # row-major in the JAX package's order (sp fastest), other axes after
+    # row-major in the JAX package's order (ep fastest), other axes after
     order = [a for a in DEFAULT_AXES if a in axes]
     axes = {a: axes[a] for a in order + [a for a in axes if a not in order]}
     dev = resolve_device(device)
@@ -559,10 +568,17 @@ def data_parallel(model: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     running averages, which every rank initialises alike or restores from
     the same checkpoint, and which stage-wide batch norm
     (:mod:`edl_tpu_torch.models.resnet`) updates from the same all-reduced
-    statistics on every rank, so they stay equal without a broadcast."""
+    statistics on every rank, so they stay equal without a broadcast.
+    A MoE block's load-balancing statistics are means over the ranks the
+    gradients are averaged over, as over the JAX step's global batch
+    (``SwitchMoE.set_batch_group``)."""
     if not _joined() or is_fsdp(model):
         return model
     from torch.nn.parallel import DistributedDataParallel
+
+    for module in model.modules():
+        if hasattr(module, "set_batch_group"):
+            module.set_batch_group(dist.group.WORLD)
 
     ids = [mesh.device] if mesh.device.type == "cuda" else None
     no_sync = ("forward_sync_buffers" if "forward_sync_buffers" in

@@ -14,12 +14,13 @@ mesh are dropped, a dimension the axis does not divide is replicated
 :class:`~edl_tpu_torch.models.transformer.TransformerLM`: q/k/v and the
 MLP's gate/up column-parallel (output dim on ``tp``), the attention output
 and the MLP's down row-parallel (input dim on ``tp``), the embedding and
-the LM head vocabulary-sharded.
+the LM head vocabulary-sharded. ``models.moe.MOE_EP_RULES`` (added to
+them) split the MoE blocks' expert banks over ``ep``.
 
 Where XLA inserts the collectives in the JAX package, here each rank keeps
 its slice of every sharded parameter (plain tensors, sliced in place: the
 port never redistributes a DTensor on a step's path) and the model
-installs its tensor-parallel forward (``TransformerLM.install_tp``, with
+installs its parallel forward (``TransformerLM.install_parallel``, with
 the collectives of :mod:`edl_tpu_torch.parallel.collectives`). The
 gradient rules GSPMD applies silently are :func:`sync_gradients`'s, which
 the train step calls after each backward:
@@ -30,6 +31,9 @@ the train step calls after each backward:
 - (c) every parameter's gradient is averaged over the ``dp × sp`` ranks,
   since the loss is the mean over the global batch and sequence (each
   rank's loss is the mean over its block), and so is the reported loss.
+  An expert bank split over ``ep`` is averaged over the ``dp × sp``
+  ranks that hold the same experts; its gradient is whole on each rank
+  (the tokens are the same on every ``ep`` rank).
 
 Trap (b), the global GQA head map under the fallback, is the model's
 (``Attention.install_tp``).
@@ -128,9 +132,9 @@ def shard_params_by_rules(mesh, module: torch.nn.Module,
                           rules: Rules) -> torch.nn.Module:
     """Shard ``module``'s parameters over ``mesh`` by ``rules``, in place,
     and return it: each parameter keeps this rank's slice along every
-    dimension its resolved spec splits (``tp`` only in the port), the
-    module installs its tensor-parallel forward
-    (``module.install_tp(mesh, specs)``) and the train step syncs the
+    dimension its resolved spec splits (over ``tp`` or ``ep``), the
+    module installs its parallel forward
+    (``module.install_parallel(mesh, specs)``) and the train step syncs the
     gradients (:func:`sync_gradients`). Call it on whole parameters
     (after ``init_weights`` or a load of converted ones), before the
     first step. A module with nothing split still gets the gradient
@@ -142,14 +146,14 @@ def shard_params_by_rules(mesh, module: torch.nn.Module,
     split = {n: _sharded_dims(mesh, s) for n, s in specs.items()}
     for name, dims in split.items():
         for _dim, axis in dims:
-            if axis != "tp":
+            if axis not in ("tp", "ep"):
                 raise NotImplementedError(
                     "rule splits %s over %r: the port shards parameters "
-                    "over tp only" % (name, axis))
-    install = getattr(module, "install_tp", None)
+                    "over tp and ep only" % (name, axis))
+    install = getattr(module, "install_parallel", None)
     if any(split.values()) and install is None:
         raise NotImplementedError(
-            "%s has no tensor-parallel forward (install_tp)"
+            "%s has no parallel forward (install_parallel)"
             % type(module).__name__)
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -165,8 +169,9 @@ def rules_state(module: torch.nn.Module):
     return getattr(module, "_edl_rules", None)
 
 
-def _average_group(mesh):
-    """The ranks whose gradients are averaged: ``dp × sp``."""
+def average_group(mesh):
+    """``(group, n)``: the ranks whose gradients are averaged, ``dp × sp``
+    (None without a process group or at one rank), and their number."""
     if mesh.model_parallel:
         return mesh.group(("dp", "sp")), mesh.dp_size * mesh.sp_size
     return (mesh.group("dp") if mesh.dp_size > 1 else None), mesh.dp_size
@@ -201,7 +206,7 @@ def sync_gradients(module: torch.nn.Module, loss: torch.Tensor = None):
                if params[n].grad is not None]
     if partial and group_size(tp) > 1:
         _flat_all_reduce(partial, tp)
-    group, n = _average_group(mesh)
+    group, n = average_group(mesh)
     if n > 1:
         grads = [p.grad for p in params.values() if p.grad is not None]
         _flat_all_reduce(grads, group)
@@ -214,8 +219,9 @@ def sync_gradients(module: torch.nn.Module, loss: torch.Tensor = None):
 @torch.no_grad()
 def gather_params(mesh, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Every parameter whole (``state_dict`` names), gathered over the
-    axes :func:`shard_params_by_rules` split it on; collective over the
-    ``tp`` group. For ``convert.to_flax`` and comparisons."""
+    axes :func:`shard_params_by_rules` split it on (expert banks over
+    ``ep``); collective over the ``tp`` and ``ep`` groups. For
+    ``convert.to_flax`` and comparisons."""
     from edl_tpu_torch.parallel.collectives import _gather_stacked
 
     st = rules_state(module)

@@ -23,8 +23,11 @@ What changes with the framework:
 - ``numerics=True`` adds the numerics plane's bundle (``obs/numerics``)
   under ``METRICS_KEY``; with ``EDL_NUMERICS_GNS`` not ``0`` and a batch
   that splits into equal even halves, the gradient is the mean of two
-  half-batch gradients, as in the JAX step. ``aux_losses=True`` waits for
-  the MoE FFN that sows them (M15) and raises, naming the item.
+  half-batch gradients, as in the JAX step. ``aux_losses=True`` adds the
+  model's aux losses (the MoE blocks' load-balancing terms, which the
+  model keeps in ``aux_losses`` after its forward) to the loss, reports
+  their sum as ``metrics["aux_loss"]`` (0 for a model without them) and
+  takes one full-batch pass, as the JAX step does.
 - A module that ``parallel.shard_params_fsdp`` sharded (FSDP2) takes no
   DDP wrap: its backward reduce-scatters the gradients over ``fsdp`` and
   all-reduces them over ``dp``, and the optimizer updates this rank's
@@ -214,6 +217,17 @@ def _halves(batch, h: int):
     return first, second
 
 
+def _aux_total(module: torch.nn.Module, like: torch.Tensor) -> torch.Tensor:
+    """The sum of the aux losses ``module`` (or the module a data-parallel
+    wrapper holds) kept from its last forward; a 0-d fp32 zero when there
+    are none."""
+    module = getattr(module, "module", module)
+    total = torch.zeros((), dtype=torch.float32, device=like.device)
+    for aux in getattr(module, "aux_losses", ()):
+        total = total + aux
+    return total
+
+
 def _after_backward(module: torch.nn.Module, loss: torch.Tensor):
     """The gradient sync of a module ``shard_params_by_rules`` sharded
     (and its loss's mean over ``dp × sp``); ``loss`` as it is otherwise."""
@@ -229,7 +243,9 @@ def make_train_step(loss_head: LossHead,
                     donate: bool = True, aux_losses: bool = False,
                     numerics: bool = False):
     """Build ``step(state, (x, y)) -> (state, metrics)``; ``apply_kwargs``
-    are forwarded to the model.
+    are forwarded to the model. ``aux_losses=True`` adds the model's aux
+    losses to the objective and reports their sum as
+    ``metrics["aux_loss"]``.
 
     ``numerics=True`` adds the numerics plane's bundle to the metrics
     under ``obs_numerics.METRICS_KEY``: 0-d device tensors the caller
@@ -249,20 +265,20 @@ def make_train_step(loss_head: LossHead,
     (it accumulates only into a gradient still there), so the first
     half's shards are set aside the same way and no gradient sync is
     switched off; the halves' norms sum their shards over the group
-    (``obs.numerics.global_norm``). A model with batch stats takes one full-batch pass (two
-    half-batch forwards would update its running averages twice, from
-    half-batch statistics), as the JAX step decides for ``batch_stats``."""
-    if aux_losses:
-        raise NotImplementedError(
-            "aux_losses=True collects what the MoE FFN sows: ROADMAP M15, "
-            "not ported yet"
-        )
+    (``obs.numerics.global_norm``). A model with batch stats takes one
+    full-batch pass (two half-batch forwards would update its running
+    averages twice, from half-batch statistics), as the JAX step decides
+    for ``batch_stats``, and so does a step with ``aux_losses``."""
     kwargs = dict(apply_kwargs or {})
     want_gns = numerics and obs_numerics.gns_enabled()
 
     def forward_backward(state, x, y):
         args = x if isinstance(x, tuple) else (x,)
         loss, metrics = loss_head(state.apply_fn(*args, **kwargs), y)
+        if aux_losses:
+            aux = _aux_total(state.apply_fn, loss)
+            loss = loss + aux
+            metrics = {**metrics, "aux_loss": aux}
         loss.backward()
         loss = _after_backward(state.apply_fn, loss.detach())
         return loss, {k: v.detach() for k, v in metrics.items()}
@@ -278,8 +294,8 @@ def make_train_step(loss_head: LossHead,
             return state, {"loss": loss, **metrics}
         params = [p for p in state.params.values() if p.is_floating_point()]
         dev = params[0].device if params else None
-        b = (_split_size(batch)
-             if want_gns and not batch_norms(state.apply_fn) else None)
+        b = (_split_size(batch) if want_gns and not aux_losses
+             and not batch_norms(state.apply_fn) else None)
         half_sq = None
         if b is not None:
             (x1, y1), (x2, y2) = _halves((x, y), b // 2)

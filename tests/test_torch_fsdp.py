@@ -131,22 +131,24 @@ def test_fsdp_spec_matches_jax(shape, size):
 
 def test_mesh_axes_and_refusals():
     """Without a process group: one rank, ``-1`` fills, axes of size 1 are
-    kept; tp and sp are axes of the mesh now (M12, M14: at 2 they do not
-    cover one rank), ep above 1 still names its ROADMAP item, and fsdp
-    does not combine with tp or sp."""
+    kept; tp, sp and ep are axes of the mesh now (M12, M14, M15: at 2 they
+    do not cover one rank), and fsdp does not combine with tp, sp or ep."""
     mesh = tmesh.make_mesh({"fsdp": -1}, device="cpu")
     assert mesh.shape == {"dp": 1, "fsdp": 1} and mesh.device_mesh is None
     assert (mesh.dp_rank, mesh.dp_size, mesh.fsdp_rank) == (0, 1, 0)
     mesh = tmesh.make_mesh({"sp": 1, "tp": -1, "dp": 1}, device="cpu")
     assert list(mesh.shape) == ["dp", "tp", "sp"]
     assert (mesh.tp_rank, mesh.sp_rank, mesh.group("tp")) == (0, 0, None)
-    for axis in ("tp", "sp"):
+    for axis in ("tp", "sp", "ep"):
         with pytest.raises(ValueError, match="do not cover 1 ranks"):
             tmesh.make_mesh({"dp": 1, axis: 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="M15"):
-        tmesh.make_mesh({"dp": 1, "ep": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="fsdp > 1 beside tp"):
-        tmesh.make_mesh({"fsdp": 2, "tp": 2}, device="cpu")
+    mesh = tmesh.make_mesh({"ep": -1, "sp": 1, "dp": 1}, device="cpu")
+    assert list(mesh.shape) == ["dp", "sp", "ep"]
+    assert (mesh.ep_rank, mesh.ep_size, mesh.group("ep")) == (0, 1, None)
+    for axis in ("tp", "sp", "ep"):
+        with pytest.raises(NotImplementedError,
+                           match="fsdp > 1 beside tp, sp or ep"):
+            tmesh.make_mesh({"fsdp": 2, axis: 2}, device="cpu")
     with pytest.raises(ValueError, match="only one axis"):
         tmesh.make_mesh({"dp": -1, "fsdp": -1}, device="cpu")
 

@@ -363,12 +363,20 @@ def test_donate_false_leaves_the_state_untouched(jax_params):
     assert donated is state and int(state.step) == 1
 
 
-def test_unported_options_raise():
-    # numerics=True is ported (tests/test_torch_numerics.py holds it to
-    # the JAX step); the MoE aux losses are not
+def test_unported_options_raise(jax_params):
+    """Every option of the JAX step is ported: numerics=True
+    (tests/test_torch_numerics.py holds it to the JAX step) and the MoE
+    aux losses (tests/test_torch_moe.py); a model without MoE blocks
+    reports ``aux_loss`` 0 and the head's loss, as the JAX step does."""
     make_train_step(_lm_loss, numerics=True)
-    with pytest.raises(NotImplementedError, match="M15"):
-        make_train_step(_lm_loss, aux_losses=True)
+    x, y = (torch.from_numpy(a) for a in _tokens())
+    plain = create_state(_port(jax_params), None, adamw(1e-3), device="cpu")
+    with_aux = create_state(_port(jax_params), None, adamw(1e-3),
+                            device="cpu")
+    _, m = make_train_step(_lm_loss)(plain, (x, y))
+    _, m_aux = make_train_step(_lm_loss, aux_losses=True)(with_aux, (x, y))
+    assert float(m_aux["aux_loss"]) == 0.0 and "aux_loss" not in m
+    assert float(m_aux["loss"]) == float(m["loss"])
 
 
 def test_seeded_state_is_reproducible():

@@ -142,10 +142,17 @@ def test_rope_matches_jax():
 
 
 def test_unported_modes_raise():
-    """The MoE FFN still waits for M15; decode mode (M13) is ported: a
-    decode model returns its logits and its cache."""
-    with pytest.raises(NotImplementedError, match="M15"):
-        TransformerLM(num_experts=4, device="cpu", **CFG)
+    """Every mode of the JAX model is ported now: the MoE FFN (M15) puts a
+    ``moe`` in every ``moe_every``-th block in place of the ``mlp``
+    (``tests/test_torch_moe.py`` holds it to the JAX model), and a decode
+    model (M13) returns its logits and its cache; an unknown remat policy
+    still raises."""
+    moe = TransformerLM(num_experts=4, moe_every=2, device="cpu", **CFG)
+    assert hasattr(moe.layer_1, "moe") and not hasattr(moe.layer_1, "mlp")
+    assert hasattr(moe.layer_0, "mlp") and not hasattr(moe.layer_0, "moe")
+    assert moe.layer_1.moe.wi.shape == (4, CFG["d_model"], CFG["d_ff"])
+    with pytest.raises(ValueError, match="remat_policy"):
+        TransformerLM(remat_policy="bogus", device="cpu", **CFG)
     model = TransformerLM(decode=True, max_decode_len=8, device="cpu", **CFG)
     model.init_weights(torch.Generator().manual_seed(0))
     with torch.no_grad():

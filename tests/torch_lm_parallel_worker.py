@@ -4,7 +4,8 @@ CPU (gloo).
     python tests/torch_lm_parallel_worker.py CONFIG.json RANK
 
 ``CONFIG.json`` holds ``world``, ``port``, ``axes`` (the mesh) and ``ops``,
-run in order by every rank:
+run in order by every rank; an op with its own ``axes`` runs on that mesh
+(its groups built then, by every rank):
 
 - ``{"op": "tp_steps", "weights": NPZ, "cfg": {...}, "data": NPZ,
   "steps": n, "lr": x, "wd": x, "out": NPZ}``: the fp32 TransformerLM of
@@ -23,7 +24,18 @@ run in order by every rank:
   ``<case>/causal``) and its backward with ``g``'s shard; every rank
   writes its shards of ``o``, ``dq``, ``dk``, ``dv`` per case;
 - ``{"op": "ulysses_errors", "out": JSON}``: the messages of Ulysses'
-  ``H % sp`` and kv-divisibility errors.
+  ``H % sp`` and kv-divisibility errors;
+- ``{"op": "moe_steps", "axes": {...}, "weights": NPZ, "cfg": {...},
+  "data": NPZ, "steps": n, "lr": x, "wd": x, "out": NPZ}``: the fp32 MoE
+  TransformerLM of ``cfg`` from converted weights, sharded by
+  ``TRANSFORMER_TP_RULES + MOE_EP_RULES`` (ring attention over ``sp``
+  when the mesh has it), ``n`` AdamW steps under
+  ``make_train_step(aux_losses=True)`` on this rank's block of the
+  global ``x``/``y`` (its ``dp`` rows, its ``sp`` chunk with global
+  positions); at ``{"dp": world}`` the model is wrapped by
+  ``data_parallel`` instead (DDP). Every rank writes ``out`` with
+  ``.<rank>``: its losses (``loss``), ``aux_loss``, its local ``wi``/``wo``
+  shapes; rank 0 also the gathered parameters (``param/<name>``).
 """
 
 import json
@@ -41,15 +53,24 @@ WORLD = cfg["world"]
 dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % cfg["port"],
                         world_size=WORLD, rank=RANK)
 
+import functools  # noqa: E402
+
 from edl_tpu_torch import convert  # noqa: E402
-from edl_tpu_torch.models import TransformerLM, greedy_generate  # noqa: E402
+from edl_tpu_torch.models import (  # noqa: E402
+    MOE_EP_RULES,
+    TransformerLM,
+    greedy_generate,
+)
 from edl_tpu_torch.models.decode import decode_model, init_cache  # noqa: E402
 from edl_tpu_torch.parallel import (  # noqa: E402
     TRANSFORMER_TP_RULES,
+    data_parallel,
     gather_params,
     make_mesh,
     ring_attention_sharded,
+    seq_positions,
     shard_params_by_rules,
+    shard_seq,
     ulysses_attention,
     ulysses_attention_sharded,
 )
@@ -63,8 +84,9 @@ from edl_tpu_torch.train import (  # noqa: E402
 mesh = make_mesh(cfg["axes"], device="cpu")
 
 
-def _model(op):
-    model = TransformerLM(dtype=torch.float32, device="meta", **op["cfg"])
+def _model(op, **kw):
+    model = TransformerLM(dtype=torch.float32, device="meta", **op["cfg"],
+                          **kw)
     model.to_empty(device="cpu")
     convert.load_params(model, op["weights"])
     return model
@@ -154,8 +176,50 @@ def ulysses_errors(op):
             json.dump(msgs, fh)
 
 
+def _lm_loss(logits, y):
+    return cross_entropy_loss(logits.reshape(-1, logits.shape[-1]),
+                              y.reshape(-1))
+
+
+def moe_steps(op):
+    mesh = make_mesh(op["axes"], device="cpu")
+    data = np.load(op["data"])
+    kw = {}
+    if mesh.sp_size > 1:
+        kw["attention_fn"] = functools.partial(ring_attention_sharded,
+                                               mesh=mesh, sp_axis="sp")
+    model = _model(op, **kw)
+    state = create_state(model, None, adamw(op["lr"], weight_decay=op["wd"]),
+                         device="cpu")
+    ddp = not mesh.model_parallel and mesh.dp_size == WORLD
+    if ddp:
+        state.apply_fn = data_parallel(model, mesh)
+    else:
+        shard_params_by_rules(mesh, model,
+                              TRANSFORMER_TP_RULES + MOE_EP_RULES)
+    x = shard_seq(mesh, data["x"])
+    y = shard_seq(mesh, data["y"]).long()
+    if mesh.sp_size > 1:
+        x = (x, seq_positions(mesh, x.shape[0], x.shape[1]))
+    step = make_train_step(_lm_loss, aux_losses=True)
+    losses, aux = [], []
+    for _ in range(op["steps"]):
+        state, metrics = step(state, (x, y))
+        losses.append(float(metrics["loss"]))
+        aux.append(float(metrics["aux_loss"]))
+    params = ({k: v.detach() for k, v in model.named_parameters()} if ddp
+              else gather_params(mesh, model))
+    out = {"loss": np.asarray(losses), "aux_loss": np.asarray(aux)}
+    for name, p in model.named_parameters():
+        if name.endswith((".moe.wi", ".moe.wo")):
+            out["shape/" + name] = np.asarray(p.shape)
+    if RANK == 0:
+        out.update({"param/" + k: v.numpy() for k, v in params.items()})
+    np.savez(_rank_path(op["out"]), **out)
+
+
 OPS = {"tp_steps": tp_steps, "generate": generate, "attn": attn,
-       "ulysses_errors": ulysses_errors}
+       "ulysses_errors": ulysses_errors, "moe_steps": moe_steps}
 for op in cfg["ops"]:
     OPS[op["op"]](op)
 dist.barrier()
