@@ -215,6 +215,34 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              steps at 2 x 2048 against world 1 on the same card: losses
              and aux losses within 1e-5, gathered parameters within 1e-3,
              each rank holding 4 of the 8 experts.
+15. pipeline - pipeline parallelism (``parallel.pipeline``,
+             ``pipeline_1f1b``, ``pipeline_lm``): (a) the flagship LM at
+             its full width (12 layers, 6 a stage) at pp 2, two gloo ranks
+             on the card (phase lm_parallel's launch; the stage-to-stage
+             hops staged through pinned host memory), GPipe and 1F1B at
+             M 4 and 8 on [8, 2048]: in fp32 each schedule's loss and its
+             stages' gradients against the flat model's (relative L2
+             1e-4); in bf16 three AdamW steps of each against world 1's
+             (losses 1e-3), each step's ms, its hops' ms and MB and their
+             share of the step against the ideal bubble
+             ``1 - pipeline_efficiency``, each rank's peak memory (1F1B's
+             must not grow from M 4 to M 8) and microbatches held, and
+             K1-K3's launches per rank (1F1B's K1 twice: the backward
+             recomputes its stage); (b) four gloo ranks, 1F1B at pp 2 x dp
+             2 and at pp 4, the flagship's widths at 4 layers, fp32,
+             against world 1.
+16. ctr    - the CTR family: (a) ``python -m edl_tpu_torch.examples.
+             ctr_train`` at DeepFM's defaults (vocab 1,000,000, embed 16,
+             MLP 256/128/64, bf16), batch 256, 200 Adam steps: exit 0, its
+             printed lines, the final train AUC above 0.51 and above its
+             step-50 reading; the DeepFM step's ms, peak memory and device
+             time by class; (b) mp 2 (phase lm_parallel's launch), the
+             tables split over mp, three fp32 Adam steps against world 1:
+             losses and gathered parameters within 1e-6; (c)
+             ``chain(topk_compression(0.01), sgd)`` three steps on
+             DeepFM's parameters, the card against the CPU within 1e-6;
+             (d) the DGC threshold of a [32000, 1024] tensor against
+             numpy's percentile, within one fp32 ulp.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -227,8 +255,10 @@ worker processes (the reference, and the worker the launcher spawns),
 ``python3 chip_smoke.py --resnet-launched OUT_DIR -- ARGS`` phase
 resnet's, ``python3 chip_smoke.py --fsdp-launched OUT_DIR FSDP1_DIR`` phase
 fsdp's, ``python3 chip_smoke.py --lm-launched OUT_DIR RANK PORT``
-phase lm_parallel's two-rank workers (they also run phase moe's (c)),
-all started by the phases themselves.
+phase lm_parallel's two-rank workers (they also run phase moe's (c),
+phase pipeline's (a) and phase ctr's (b)), ``python3 chip_smoke.py
+--pp-launched OUT_DIR RANK PORT`` phase pipeline's four-rank workers, all
+started by the phases themselves.
 """
 
 import concurrent.futures
@@ -3941,7 +3971,7 @@ TP_NEW = 8
 TP_LR = 1e-4
 TOL_TP_LOSS = 1e-5
 TOL_TP_UPDATE = 1e-2
-LM_WORKER_TIMEOUT_S = 300
+LM_WORKER_TIMEOUT_S = 480
 
 
 def _decode_check(torch, cfg) -> dict:
@@ -4191,9 +4221,10 @@ def _tp_child(torch, rank: int) -> dict:
 
 def lm_parallel_child(torch, out_dir: str, rank: int, port: int) -> None:
     """One of two gloo ranks of phase lm_parallel (``--lm-launched``), one
-    process for three runs: (d) Ulysses on this rank's sequence shard,
-    (e) at tp 2 and phase moe's (c) at ep 2, rank 0 also running (e)'s
-    and (c)'s world-1 references on the same card."""
+    process for five runs: (d) Ulysses on this rank's sequence shard,
+    (e) at tp 2, phase moe's (c) at ep 2, phase pipeline's (a) at pp 2
+    and phase ctr's (b) at mp 2, rank 0 also running the world-1
+    references on the same card."""
     import torch.distributed as dist
 
     torch.cuda.set_device(0)
@@ -4205,6 +4236,10 @@ def lm_parallel_child(torch, out_dir: str, rank: int, port: int) -> None:
     rec.update(_tp_child(torch, rank))
     torch.cuda.empty_cache()
     rec["moe_ep"] = _moe_ep_child(torch, rank)
+    torch.cuda.empty_cache()
+    rec["pipeline"] = _pp_child(torch, rank)
+    torch.cuda.empty_cache()
+    rec["ctr_mp"] = _ctr_mp_child(torch, rank)
     with open(os.path.join(out_dir, "lm.%d.json" % rank), "w") as fh:
         json.dump(rec, fh)
     dist.barrier()
@@ -4756,6 +4791,584 @@ def phase_moe(torch, smi: str, lmp: dict) -> dict:
     return res
 
 
+# phase pipeline. (a) pp 2 at the flagship's full width: two gloo ranks
+# sharing the card (the lm_parallel launch), hops staged through pinned
+# host memory; GPipe and 1F1B at M 4 and 8.
+PP_SCHEDULES = (("gpipe", 4), ("gpipe", 8), ("1f1b", 4), ("1f1b", 8))
+PP_SEED, PP_DATA_SEED = 21, 22
+PP_LR = 1e-4
+PP_STEPS = 3
+# fp32 compute: the stages' loss and gradients against the flat model's
+# (relative L2 over the stage; K1-K3 run their fp32 width-64 bodies)
+TOL_PP_FP32 = 1e-4
+# bf16 compute: each step's loss against world 1's (the microbatches'
+# products round at other shapes than the whole batch's)
+TOL_PP_BF16 = 1e-3
+# (b) four ranks: 1F1B at pp 2 x dp 2 and at pp 4, the flagship's widths
+# cut to 4 layers (the script's time limit), fp32, against world 1
+PP4_LAYERS = 4
+PP4_RUNS = (({"pp": 2, "dp": 2}, 4, "dp"), ({"pp": 4}, 4, None))
+PP_WORKER_TIMEOUT_S = 300
+
+
+def _pp_cfg(layers=None) -> dict:
+    cfg = FLAGSHIP_TRAIN
+    return dict(vocab_size=cfg["vocab_size"], d_model=cfg["d_model"],
+                num_heads=cfg["num_heads"],
+                num_layers=layers or cfg["num_layers"], d_ff=cfg["d_ff"],
+                remat=True, remat_policy=cfg["remat"])
+
+
+def _pp_model(torch, dtype, layers=None):
+    from edl_tpu_torch.models import TransformerLM
+
+    model = TransformerLM(device="cuda", dtype=dtype, **_pp_cfg(layers))
+    return model.init_weights(
+        torch.Generator(device="cuda").manual_seed(PP_SEED))
+
+
+def _pp_data(torch):
+    gen = torch.Generator(device="cuda").manual_seed(PP_DATA_SEED)
+    cfg = FLAGSHIP_TRAIN
+    tok = torch.randint(0, cfg["vocab_size"], (cfg["batch"], cfg["seq"]),
+                        device="cuda", generator=gen)
+    return tok, torch.roll(tok, -1, dims=1)
+
+
+def _pp_reference(torch, model, names, tok, tgt) -> dict:
+    """The flat model's loss and the gradients of ``names`` (one stage's
+    parameters) on the whole batch, fp32."""
+    from edl_tpu_torch.tools import lm_bench
+
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = lm_bench.lm_loss(model(tok), tgt)
+    loss.backward()
+    grads = {n: p.grad.detach().clone()
+             for n, p in model.named_parameters() if n in names}
+    for p in model.parameters():
+        p.grad = None
+    return {"loss": float(loss), "grads": grads}
+
+
+def _pp_run(torch, stage, mesh, schedule, m, tok, tgt, batch_axis=None):
+    """One step's loss and gradients over ``stage`` by ``schedule``."""
+    from edl_tpu_torch.parallel import (pipeline_lm_1f1b_grads,
+                                        pipeline_lm_loss)
+
+    stats = {}
+    if schedule == "gpipe":
+        loss = pipeline_lm_loss(stage, tok, tgt, mesh, m,
+                                batch_axis=batch_axis, stats=stats)
+    else:
+        loss, _ = pipeline_lm_1f1b_grads(stage, tok, tgt, mesh, m,
+                                         batch_axis=batch_axis, stats=stats)
+    return float(loss), stats["live_max"]
+
+
+def _rel_l2_parts(stage, ref) -> dict:
+    """Sums of squares of the stage's gradients' errors and of the
+    reference's (the phase adds the ranks' before the root)."""
+    named = dict(stage.named_parameters())
+    err = sum(float((p.grad - ref["grads"][n]).double().square().sum())
+              for n, p in named.items())
+    norm = sum(float(ref["grads"][n].double().square().sum())
+               for n in named)
+    return {"err_sq": err, "ref_sq": norm}
+
+
+def _pp_child(torch, rank: int) -> dict:
+    """Phase pipeline (a) in a rank of the lm_parallel launch: the fp32
+    check of each schedule against the flat model (each rank computes its
+    stage's reference itself), then ``PP_STEPS`` bf16 AdamW steps of each
+    schedule, timed, with their hops, peak memory and launches; rank 0
+    also the bf16 steps at world 1."""
+    from edl_tpu_torch.parallel import collectives, lm_stage, make_mesh
+    from edl_tpu_torch.train import adamw
+
+    mesh = make_mesh({"pp": 2}, device="cuda")
+    tok, tgt = _pp_data(torch)
+    rec = {"mesh": mesh.shape, "pp_rank": mesh.pp_rank, "fp32": {},
+           "bf16": {}}
+    model = _pp_model(torch, torch.float32)
+    stage = lm_stage(model, mesh)
+    names = {n for n, _ in stage.named_parameters()}
+    ref = _pp_reference(torch, model, names, tok, tgt)
+    rec["ref_loss_fp32"] = ref["loss"]
+    for schedule, m in PP_SCHEDULES:
+        loss, live = _pp_run(torch, stage, mesh, schedule, m, tok, tgt)
+        rec["fp32"]["%s-m%d" % (schedule, m)] = dict(
+            loss=loss, live_max=live, **_rel_l2_parts(stage, ref))
+    del model, stage, ref
+    torch.cuda.empty_cache()
+
+    model = _pp_model(torch, torch.bfloat16)
+    stage = lm_stage(model, mesh)
+    init = {n: p.detach().clone() for n, p in stage.named_parameters()}
+    for schedule, m in PP_SCHEDULES:
+        with torch.no_grad():
+            for n, p in stage.named_parameters():
+                p.copy_(init[n])
+        tx = adamw(PP_LR)
+        opt = tx.init(stage.parameters())
+        losses, step_s, hop_s, hop_b = [], [], [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()  # the pipeline_<schedule> path starts here
+        for _ in range(PP_STEPS):
+            collectives.reset_transport()
+            t0 = time.perf_counter()
+            loss, live = _pp_run(torch, stage, mesh, schedule, m, tok, tgt)
+            tx.update(opt)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(loss)
+            hop_s.append(collectives.PIPELINE["seconds"])
+            hop_b.append(collectives.PIPELINE["bytes"])
+        rec["bf16"]["%s-m%d" % (schedule, m)] = {
+            "losses": losses, "step_s": step_s, "hop_s": hop_s,
+            "hop_bytes": hop_b, "live_max": live,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": _launch_counts()}
+    del model, stage, init
+    torch.cuda.empty_cache()
+    if rank == 0:
+        from edl_tpu_torch.tools import lm_bench
+        from edl_tpu_torch.train import create_state, make_train_step
+
+        model = _pp_model(torch, torch.bfloat16)
+        state = create_state(model, None, adamw(PP_LR), device="cuda")
+        step = make_train_step(lm_bench.lm_loss)
+        losses, step_s = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PP_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, (tok, tgt))
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        rec["world1"] = {"losses": losses, "step_s": step_s,
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del model, state
+        torch.cuda.empty_cache()
+    return rec
+
+
+def pp_launched(torch, out_dir: str, rank: int, port: int) -> None:
+    """One of four gloo ranks of phase pipeline (b) (``--pp-launched``):
+    1F1B at pp 2 x dp 2 and at pp 4 on the flagship cut to
+    ``PP4_LAYERS`` layers, fp32, each rank's stage against the flat
+    model's gradients it computes itself."""
+    import torch.distributed as dist
+
+    from edl_tpu_torch.parallel import lm_stage, make_mesh
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:%d" % port,
+                            world_size=4, rank=rank)
+    tok, tgt = _pp_data(torch)
+    model = _pp_model(torch, torch.float32, PP4_LAYERS)
+    ref = _pp_reference(torch, model, {n for n, _ in model.named_parameters()},
+                        tok, tgt)
+    rec = {"rank": rank, "runs": []}
+    for axes, m, batch_axis in PP4_RUNS:
+        mesh = make_mesh(axes, device="cuda")
+        stage = lm_stage(model, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, live = _pp_run(torch, stage, mesh, "1f1b", m, tok, tgt,
+                             batch_axis)
+        torch.cuda.synchronize()
+        rec["runs"].append(dict(
+            mesh=mesh.shape, coords=mesh.coords, loss=loss,
+            ref_loss=ref["loss"], live_max=live,
+            step_s=time.perf_counter() - t0,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            **_rel_l2_parts(stage, ref)))
+        del stage
+        for p in model.parameters():
+            p.grad = None
+    with open(os.path.join(out_dir, "pp4.%d.json" % rank), "w") as fh:
+        json.dump(rec, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _four_ranks(out_dir: str) -> list:
+    """``chip_smoke.py --pp-launched OUT_DIR RANK PORT`` as four gloo ranks
+    sharing the card (sessions of their own, killed in ``finally``)."""
+    from edl_tpu_torch.utils.net import find_free_ports
+
+    port = find_free_ports(1)[0]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    logs = [os.path.join(out_dir, "pp4.%d.log" % r) for r in range(4)]
+    procs = []
+    try:
+        for r in range(4):
+            with open(logs[r], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--pp-launched", out_dir, str(r), str(port)],
+                    env=env, cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        for proc in procs:
+            proc.wait(timeout=PP_WORKER_TIMEOUT_S)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait(timeout=30)
+    for proc, log in zip(procs, logs):
+        if proc.returncode != 0:
+            sys.stderr.write(_tail(log, 60))
+            raise AssertionError("pipeline rank exited %d" % proc.returncode)
+    recs = []
+    for r in range(4):
+        with open(os.path.join(out_dir, "pp4.%d.json" % r)) as fh:
+            recs.append(json.load(fh))
+    return recs
+
+
+def phase_pipeline(torch, smi: str, lmp: dict) -> dict:
+    """Pipeline parallelism on the card: (a) from phase lm_parallel's
+    two-rank launch, (b) four ranks. See the module docstring."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.parallel import pipeline_efficiency
+
+    t0 = time.monotonic()
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    res = {"phase": "pipeline", "card": smi, "cfg": _pp_cfg(),
+           "batch": [FLAGSHIP_TRAIN["batch"], FLAGSHIP_TRAIN["seq"]]}
+    ranks = [r["pipeline"] for r in lmp["tp_ranks"]]
+    r0 = ranks[0]
+    layers = FLAGSHIP_TRAIN["num_layers"] // 2
+    fp32, bf16 = {}, {}
+    for schedule, m in PP_SCHEDULES:
+        key = "%s-m%d" % (schedule, m)
+        parts = [r["fp32"][key] for r in ranks]
+        fp32[key] = {
+            "loss": parts[0]["loss"], "loss_world1": r0["ref_loss_fp32"],
+            "loss_rel_err": abs(parts[0]["loss"] - r0["ref_loss_fp32"])
+            / abs(r0["ref_loss_fp32"]),
+            "ranks_agree": all(p["loss"] == parts[0]["loss"] for p in parts),
+            "grad_rel_l2": math.sqrt(sum(p["err_sq"] for p in parts)
+                                     / sum(p["ref_sq"] for p in parts)),
+            "live_max": [p["live_max"] for p in parts]}
+        runs = [r["bf16"][key] for r in ranks]
+        w1 = r0["world1"]
+        steady = slice(1, PP_STEPS)  # the first step warms cuBLAS
+
+        def mean(xs):
+            return sum(xs) / len(xs)
+
+        step_s = mean(runs[0]["step_s"][steady])
+        hop_s = [mean(r["hop_s"][steady]) for r in runs]
+        per_step = {k: m * layers * (2 if schedule == "1f1b"
+                                     and k == "flash_fwd" else 1)
+                    for k in kernels}
+        bf16[key] = {
+            "losses": runs[0]["losses"], "losses_world1": w1["losses"],
+            "loss_rel_err": max(abs(a - b) / abs(b) for a, b in
+                                zip(runs[0]["losses"], w1["losses"])),
+            "ranks_agree": all(r["losses"] == runs[0]["losses"]
+                               for r in runs),
+            "step_ms": step_s * 1e3,
+            "step_ms_world1": mean(w1["step_s"][steady]) * 1e3,
+            "hop_ms": [h * 1e3 for h in hop_s],
+            "hop_mb": [r["hop_bytes"][-1] / 1e6 for r in runs],
+            "hop_share": [h / step_s for h in hop_s],
+            "bubble_ideal": 1.0 - pipeline_efficiency(m, 2),
+            "peak_gb": [r["peak_gb"] for r in runs],
+            "peak_gb_world1": w1["peak_gb"],
+            "live_max": [r["live_max"] for r in runs],
+            "launches": [r["launches"] for r in runs],
+            "launches_want": {k: v * PP_STEPS for k, v in per_step.items()}}
+    res["fp32"], res["bf16"] = fp32, bf16
+
+    work = tempfile.mkdtemp(prefix="edl-pp4-")
+    try:
+        t1 = time.monotonic()
+        four = _four_ranks(work)
+        four_s = time.monotonic() - t1
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["four"] = []
+    for i, (axes, m, batch_axis) in enumerate(PP4_RUNS):
+        runs = [r["runs"][i] for r in four]
+        res["four"].append({
+            "mesh": runs[0]["mesh"], "layers": PP4_LAYERS, "M": m,
+            "batch_axis": batch_axis, "schedule": "1f1b",
+            "loss": runs[0]["loss"], "loss_world1": runs[0]["ref_loss"],
+            "loss_rel_err": abs(runs[0]["loss"] - runs[0]["ref_loss"])
+            / abs(runs[0]["ref_loss"]),
+            "ranks_agree": all(r["loss"] == runs[0]["loss"] for r in runs),
+            # each dp replica of a stage computed the whole gradient:
+            # count each stage once (dp index 0)
+            "grad_rel_l2": math.sqrt(
+                sum(r["err_sq"] for r in runs
+                    if r["coords"].get("dp", 0) == 0)
+                / sum(r["ref_sq"] for r in runs
+                      if r["coords"].get("dp", 0) == 0)),
+            "live_max": [r["live_max"] for r in runs],
+            "step_ms": [r["step_s"] * 1e3 for r in runs],
+            "peak_gb": [r["peak_gb"] for r in runs]})
+    res["four_s"] = four_s
+    res["seconds"] = time.monotonic() - t0
+    emit(res)
+
+    for key, r in fp32.items():
+        check(r["ranks_agree"] and r["loss_rel_err"] <= TOL_PP_FP32
+              and r["grad_rel_l2"] <= TOL_PP_FP32,
+              "pipeline (a): fp32 %s loss %.3g, gradients %.3g" % (
+                  key, r["loss_rel_err"], r["grad_rel_l2"]))
+    for key, r in bf16.items():
+        check(r["ranks_agree"] and r["loss_rel_err"] <= TOL_PP_BF16,
+              "pipeline (a): bf16 %s losses %s vs world 1 %s"
+              % (key, r["losses"], r["losses_world1"]))
+        check(all(got == r["launches_want"] for got in r["launches"]),
+              "pipeline (a): %s launches %s, want %s per rank"
+              % (key, r["launches"], r["launches_want"]))
+    for key in ("1f1b-m4", "1f1b-m8"):
+        check(max(bf16[key]["live_max"]) <= 2,
+              "pipeline (a): %s held %s microbatches" % (
+                  key, bf16[key]["live_max"]))
+    check(max(bf16["1f1b-m8"]["peak_gb"])
+          <= max(bf16["1f1b-m4"]["peak_gb"]) * 1.05,
+          "pipeline (a): 1F1B's peak grew from M 4 %s to M 8 %s" % (
+              bf16["1f1b-m4"]["peak_gb"], bf16["1f1b-m8"]["peak_gb"]))
+    for r in res["four"]:
+        check(r["ranks_agree"] and r["loss_rel_err"] <= TOL_PP_FP32
+              and r["grad_rel_l2"] <= TOL_PP_FP32
+              and max(r["live_max"]) <= r["mesh"]["pp"],
+              "pipeline (b): %s %s" % (r["mesh"], r))
+    return res
+
+
+# phase ctr. (a) the ported example at DeepFM's defaults (vocab 1,000,000,
+# embed 16, MLP 256/128/64, bf16) at batch 256: 200 Adam steps at world 1;
+# its final train AUC (cumulative over the run) above CTR_AUC_MIN and above
+# its first reading (step 50). The synthetic label's logit is 3 x the share
+# of ids that are multiples of 7 plus 0.5 x dense[:, 0]: at a vocab of 1 M
+# few ids repeat in 51,200 rows, so the dense term carries most of it (the
+# port's CPU run: 0.5045 at step 50, 0.5234 at step 200).
+CTR_VOCAB = 1_000_000
+CTR_STEPS = 200
+CTR_AUC_MIN = 0.51
+CTR_TIMED_STEPS = 20
+# (b) mp 2 (the lm_parallel launch), fp32, against world 1 on the card
+CTR_MP_STEPS = 3
+CTR_BATCH = 256
+TOL_CTR_MP = 1e-6
+# (c) chain(topk_compression(0.01), sgd) on DeepFM's parameters, card
+# against CPU; (d) the threshold of a [32000, 1024] tensor against numpy
+CTR_TOPK_STEPS = 3
+CTR_TOPK_RATIO = 0.01
+TOL_CTR_TOPK = 1e-6
+THRESH_SHAPE = (32000, 1024)
+
+
+def _ctr_run(torch, mesh=None) -> dict:
+    """(b)'s run: ``CTR_MP_STEPS`` Adam steps of the fp32 DeepFM at its
+    defaults on one seeded batch (its tables split over ``mesh``'s mp
+    when given): losses and the parameters after, gathered."""
+    from edl_tpu_torch.examples import ctr_train
+    from edl_tpu_torch.models import (CTR_EMBEDDING_RULES, DeepFM,
+                                      binary_cross_entropy_loss)
+    from edl_tpu_torch.parallel import gather_params, shard_params_by_rules
+    from edl_tpu_torch.train import adam, create_state, make_train_step
+
+    model = DeepFM(vocab_size=CTR_VOCAB, dtype=torch.float32, device="cuda")
+    state = create_state(model, 0, adam(1e-3), device="cuda")
+    if mesh is not None:
+        shard_params_by_rules(mesh, model, CTR_EMBEDDING_RULES)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    batch = ctr_train.synthetic_batch(gen, CTR_BATCH, CTR_VOCAB, "cuda")
+    step = make_train_step(binary_cross_entropy_loss)
+    losses = []
+    for _ in range(CTR_MP_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    rows = model.embedding.embedding.shape[0]
+    after = (gather_params(mesh, model) if mesh is not None
+             else {k: v.detach() for k, v in model.named_parameters()})
+    return {"losses": losses, "rows": rows, "after": after}
+
+
+def _ctr_mp_child(torch, rank: int) -> dict:
+    """Phase ctr (b) in a rank of the lm_parallel launch: mp 2, and on
+    rank 0 world 1 on the same card, compared."""
+    from edl_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"dp": 1, "mp": 2}, device="cuda")
+    run = _ctr_run(torch, mesh)
+    rec = {"mesh": mesh.shape, "losses": run["losses"], "rows": run["rows"]}
+    if rank == 0:
+        ref = _ctr_run(torch, None)
+        rec.update(ref_losses=ref["losses"], ref_rows=ref["rows"],
+                   param_max_abs_err=max(
+                       (run["after"][k] - v).abs().max().item()
+                       for k, v in ref["after"].items()))
+    return rec
+
+
+def _topk_params(torch, device):
+    """DeepFM's parameters at its defaults (zeros) as leaves on
+    ``device``, and ``CTR_TOPK_STEPS`` seeded gradients for them."""
+    from edl_tpu_torch.models import DeepFM
+
+    shapes = [(n, p.shape) for n, p in
+              DeepFM(vocab_size=CTR_VOCAB, device="meta").named_parameters()]
+    gen = torch.Generator().manual_seed(41)
+    init = [torch.randn(s, generator=gen) for _, s in shapes]
+    grads = [[torch.randn(s, generator=gen) for _, s in shapes]
+             for _ in range(CTR_TOPK_STEPS)]
+    params = [torch.nn.Parameter(t.to(device)) for t in init]
+    return [n for n, _ in shapes], params, grads
+
+
+def _topk_chain(torch, device) -> dict:
+    """(c): ``CTR_TOPK_STEPS`` updates of ``chain(topk_compression,
+    sgd)`` on ``device``; the parameters and residuals after, on the
+    host, and the mean time of an update there."""
+    from edl_tpu_torch.train import chain, sgd, topk_compression
+
+    names, params, grads = _topk_params(torch, device)
+    tx = chain(topk_compression(CTR_TOPK_RATIO), sgd(0.1))
+    opt = tx.init(params)
+    times = []
+    for g in grads:
+        for p, gi in zip(params, g):
+            p.grad = gi.to(device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.update(opt)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"params": [p.detach().cpu() for p in params],
+            "residual": [r.cpu() for r in opt.states[0].residual],
+            "update_ms": sum(times[1:]) / max(1, len(times) - 1) * 1e3,
+            "names": names}
+
+
+def phase_ctr(torch, smi: str, lmp: dict) -> dict:
+    """The CTR family on the card: (a) the ported example, (b) mp 2, (c)
+    DGC on the card against the CPU, (d) the threshold against numpy. See
+    the module docstring."""
+    import numpy as np
+
+    from edl_tpu_torch.examples import ctr_train
+    from edl_tpu_torch.models import DeepFM, binary_cross_entropy_loss
+    from edl_tpu_torch.train import adam, create_state, make_train_step
+    from edl_tpu_torch.train.compression import percentile_threshold
+
+    t0 = time.monotonic()
+    res = {"phase": "ctr", "card": smi}
+    # (a) the example as a user runs it, its printed lines kept
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t1 = time.monotonic()
+    run = subprocess.run(
+        [sys.executable, "-m", "edl_tpu_torch.examples.ctr_train",
+         "--vocab", str(CTR_VOCAB), "--steps", str(CTR_STEPS),
+         "--batch", str(CTR_BATCH)],
+        capture_output=True, text=True, env=env, cwd=HERE,
+        timeout=LM_WORKER_TIMEOUT_S)
+    if run.returncode != 0:
+        sys.stderr.write(run.stdout[-3000:] + run.stderr[-6000:])
+    lines = [ln for ln in run.stdout.splitlines()
+             if ln.startswith(("step ", "final "))]
+    readings = [float(ln.split()[-1]) for ln in lines]
+    auc = readings[-1] if readings else float("nan")
+    res["example"] = {"rc": run.returncode, "auc": auc, "lines": lines,
+                      "auc_min": CTR_AUC_MIN,
+                      "seconds": time.monotonic() - t1}
+    # the DeepFM step alone at the example's sizes: ms, peak memory
+    model = DeepFM(vocab_size=CTR_VOCAB, device="cuda")
+    state = create_state(model, 0, adam(1e-3), device="cuda")
+    step = make_train_step(binary_cross_entropy_loss)
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    batch = ctr_train.synthetic_batch(gen, CTR_BATCH, CTR_VOCAB, "cuda")
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    for _ in range(CTR_TIMED_STEPS):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    res["step_ms"] = (time.perf_counter() - t1) / CTR_TIMED_STEPS * 1e3
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["step_breakdown"] = _device_breakdown(
+        torch, lambda: step(state, batch),
+        classes=(("embedding", ("index", "embedding", "gather", "scatter")),
+                 ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                 ("optimizer", ("multi_tensor", "adam", "Adam"))))
+    del model, state
+    torch.cuda.empty_cache()
+    # (b) mp 2, from the lm_parallel launch
+    mp = [r["ctr_mp"] for r in lmp["tp_ranks"]]
+    m0 = mp[0]
+    res["mp"] = {"mesh": m0["mesh"], "losses": m0["losses"],
+                 "losses_world1": m0["ref_losses"],
+                 "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(
+                     m0["losses"], m0["ref_losses"])),
+                 "ranks_agree": all(r["losses"] == m0["losses"] for r in mp),
+                 "rows": [r["rows"] for r in mp], "rows_world1": m0["ref_rows"],
+                 "param_max_abs_err": m0["param_max_abs_err"]}
+    # (c) DGC: the card against the CPU
+    card, cpu = _topk_chain(torch, "cuda"), _topk_chain(torch, "cpu")
+    res["topk"] = {
+        "ratio": CTR_TOPK_RATIO, "steps": CTR_TOPK_STEPS,
+        "param_max_abs_err": max((a - b).abs().max().item() for a, b in
+                                 zip(card["params"], cpu["params"])),
+        "residual_max_abs_err": max((a - b).abs().max().item() for a, b in
+                                    zip(card["residual"], cpu["residual"])),
+        "kept_share": {n: float((r == 0).float().mean()) for n, r in
+                       zip(card["names"], card["residual"])},
+        "update_ms": card["update_ms"], "update_ms_cpu": cpu["update_ms"]}
+    # (d) the threshold of 32.8 M entries against numpy's percentile
+    g = torch.randn(THRESH_SHAPE, generator=torch.Generator().manual_seed(43))
+    mag = g.abs()
+    want = np.float32(np.percentile(mag.numpy(), 100.0 * (1 - CTR_TOPK_RATIO)))
+    dev = mag.cuda()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = float(percentile_threshold(dev, 100.0 * (1 - CTR_TOPK_RATIO)))
+    res["threshold"] = {"shape": list(THRESH_SHAPE), "got": got,
+                        "numpy": float(want), "ulp": float(np.spacing(want)),
+                        "numpy_version": np.__version__,
+                        "ms": (time.perf_counter() - t1) * 1e3}
+    res["seconds"] = time.monotonic() - t0
+    emit(res)
+
+    ex = res["example"]
+    check(ex["rc"] == 0 and len(readings) == CTR_STEPS // 50 + 1
+          and lines[-1].startswith("final train-auc ")
+          and auc > CTR_AUC_MIN and auc > readings[0],
+          "ctr (a): rc %d, train AUC %s (bound %.2f)"
+          % (ex["rc"], lines, CTR_AUC_MIN))
+    mpr = res["mp"]
+    check(mpr["ranks_agree"] and mpr["loss_rel_err"] <= TOL_CTR_MP
+          and mpr["param_max_abs_err"] <= TOL_CTR_MP
+          and mpr["rows"] == [CTR_VOCAB // 2] * 2
+          and mpr["rows_world1"] == CTR_VOCAB,
+          "ctr (b): mp 2 against world 1 %s" % mpr)
+    tk = res["topk"]
+    check(tk["param_max_abs_err"] <= TOL_CTR_TOPK
+          and tk["residual_max_abs_err"] <= TOL_CTR_TOPK,
+          "ctr (c): DGC card against CPU %s" % tk)
+    th = res["threshold"]
+    check(abs(th["got"] - th["numpy"]) <= th["ulp"],
+          "ctr (d): threshold %s" % th)
+    return res
+
+
 def _lm_paths(lmp: dict, name: str) -> dict:
     """Phase lm_parallel's launches of kernel ``name`` by path: the ring
     (every rank of the tp 2 x sp 2 job), Ulysses and the tp 2 step (both
@@ -4764,6 +5377,14 @@ def _lm_paths(lmp: dict, name: str) -> dict:
             "ulysses": sum(r[name] for r in lmp["ulysses"]["launches"]),
             "tp_step": sum(r[name] for r in lmp["tp"]["launches"]),
             "lm_generate": lmp["lm_generate"]["launches"][name]}
+
+
+def _pp_paths(pipe: dict, name: str) -> dict:
+    """Phase pipeline (a)'s launches of kernel ``name`` by schedule: the
+    bf16 steps of both ranks at every M."""
+    return {"pipeline_" + sched: sum(
+        n[name] for key, r in pipe["bf16"].items() if key.startswith(sched)
+        for n in r["launches"]) for sched in ("gpipe", "1f1b")}
 
 
 def main() -> int:
@@ -4806,6 +5427,9 @@ def main() -> int:
         lm_parallel_child(torch, sys.argv[2], int(sys.argv[3]),
                           int(sys.argv[4]))
         return 0
+    if sys.argv[1:2] == ["--pp-launched"]:
+        pp_launched(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
+        return 0
     # each phase's wall seconds, emitted before the kernels line
     marks = [time.monotonic()]
     seconds = {}
@@ -4847,6 +5471,10 @@ def main() -> int:
     done("lm_parallel")
     moe = phase_moe(torch, dev["nvidia_smi"], lmp)
     done("moe")
+    pipe = phase_pipeline(torch, dev["nvidia_smi"], lmp)
+    done("pipeline")
+    phase_ctr(torch, dev["nvidia_smi"], lmp)
+    done("ctr")
     emit({"phase_seconds": seconds, "total_s": marks[-1] - marks[0]})
     leaked = sorted(
         m for m in sys.modules
@@ -4872,7 +5500,8 @@ def main() -> int:
                              "distill_teacher":
                                  nlp["teacher_launches"]["flash_fwd"],
                              **_lm_paths(lmp, "flash_fwd"),
-                             "moe": moe["train"]["launches"]["flash_fwd"]},
+                             "moe": moe["train"]["launches"]["flash_fwd"],
+                             **_pp_paths(pipe, "flash_fwd")},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -4906,7 +5535,8 @@ def main() -> int:
                                  "distill_student":
                                      nlp["student_launches"][name],
                                  **_lm_paths(lmp, name),
-                                 "moe": moe["train"]["launches"][name]},
+                                 "moe": moe["train"]["launches"][name],
+                                 **_pp_paths(pipe, name)},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),

@@ -25,7 +25,9 @@ batch-norm model's ``batch_stats`` collection (``.../BatchNorm_0/mean``,
 
 A model whose expert banks are split over ``ep`` (or tensor-parallel
 weights over ``tp``) converts from ``parallel.gather_params``, which
-reassembles them.
+reassembles them. The JAX pipeline's ``LMStageParams`` (``embed``, a body
+stacked ``[PP, L/PP, ...]``, ``head``) become each rank's
+``parallel.LMStage`` dict through :func:`lm_stage_state_dict`.
 
 A tree is a nested dict of numpy arrays (``state.params``, the
 ``{"params": ...}`` dict ``Module.init`` returns, or ``{"params": ...,
@@ -108,6 +110,27 @@ def to_flax(state_dict) -> Dict:
             arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))  # HWIO
         node[leaf] = arr
     return {"params": params, "batch_stats": stats} if stats else params
+
+
+def lm_stage_state_dict(split, rank: int) -> Dict[str, torch.Tensor]:
+    """Stage ``rank``'s ``state_dict`` (CPU tensors) from the JAX
+    ``LMStageParams`` ``split`` (a named tuple or ``(embed, body, head)``
+    of numpy trees): the body's ``[rank, j]`` entry is block
+    ``layer_{rank·L/PP + j}``; the embedding goes to rank 0, ``ln_f`` and
+    ``lm_head`` to the last rank."""
+    embed, body, head = split
+    flat = flatten(body)
+    pp, lps = next(iter(flat.values())).shape[:2]
+    out: Dict[str, torch.Tensor] = {}
+    if rank == 0:
+        out.update(to_state_dict({"embed": embed}))
+    for j in range(lps):
+        out.update(to_state_dict({
+            "layer_%d/%s" % (rank * lps + j, path): np.asarray(arr)[rank, j]
+            for path, arr in flat.items()}))
+    if rank == pp - 1:
+        out.update(to_state_dict(head))
+    return out
 
 
 def save_npz(params, path: str) -> None:

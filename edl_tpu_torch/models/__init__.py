@@ -1,3 +1,8 @@
+from edl_tpu_torch.models.ctr import (
+    CTR_EMBEDDING_RULES,
+    DeepFM,
+    binary_cross_entropy_loss,
+)
 from edl_tpu_torch.models.mlp import MLP, LinearRegression
 from edl_tpu_torch.models.resnet import (
     ResNet,
@@ -21,6 +26,9 @@ __all__ = [
     "ResNeXt50_32x4d",
     "ResNeXt101_32x16d",
     "TransformerLM",
+    "DeepFM",
+    "CTR_EMBEDDING_RULES",
+    "binary_cross_entropy_loss",
     "SwitchMoE",
     "MOE_EP_RULES",
     "greedy_generate",

@@ -53,8 +53,9 @@ Parallelism (:meth:`SwitchMoE.install_parallel`, which
   (``TRANSFORMER_TP_RULES`` has no rule for it): its gradients are not
   summed over ``tp``.
 
-The MoE LM under a pipeline waits for ROADMAP M16 (the JAX pipeline
-refuses it too), the dp × tp × sp × ep dry run for M24.
+A pipeline refuses the MoE LM (``parallel.pipeline_lm``), as the JAX
+pipeline does: its blocks are not homogeneous. The dp × tp × sp × ep dry
+run waits for ROADMAP M24.
 """
 
 from __future__ import annotations

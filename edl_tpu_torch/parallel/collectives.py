@@ -17,6 +17,10 @@ collectives (GSPMD, ``shard_map``). Here they are explicit, Megatron's way:
 - :func:`ring_shift`: every rank sends to the next rank of the group and
   receives from the previous one, with ``batch_isend_irecv`` (no pair
   waits on another); the ring's hop.
+- :func:`neighbour_exchange`: the pipeline's hop, not cyclic: a rank
+  sends to and receives from its neighbours on the ``pp`` group only the
+  tensors its schedule says carry data, all of one tick in one
+  ``batch_isend_irecv``.
 
 None of them redistributes a DTensor (gloo does not carry DTensor's
 functional collectives for tensors on the card). A ``group`` of None, or
@@ -24,13 +28,14 @@ of one rank, makes each an identity.
 
 **The transport.** gloo carries every collective here for tensors on the
 card but point-to-point send/recv, so the ring's hop stages its tensors
-through pinned host memory on a gloo group; :func:`stage_through_host` is
-the one place that decides, from the backend, never by catching a
-failure.
+through pinned host memory on a gloo group, and so do the pipeline's;
+:func:`stage_through_host` is the one place that decides, from the
+backend, never by catching a failure.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from typing import List, Sequence
 
@@ -51,10 +56,13 @@ GLOO_CARRIES_CUDA_P2P = False
 # process; phase lm_parallel of chip_smoke.py reports a step's share of each
 TRANSPORT = {"seconds": 0.0, "bytes": 0, "calls": 0}
 TP_COLLECTIVES = {"seconds": 0.0, "bytes": 0, "calls": 0}
+# the same for the pipeline's stage-to-stage hops (neighbour_exchange);
+# phase pipeline of chip_smoke.py reports a step's share
+PIPELINE = {"seconds": 0.0, "bytes": 0, "calls": 0}
 
 
 def reset_transport() -> None:
-    for counter in (TRANSPORT, TP_COLLECTIVES):
+    for counter in (TRANSPORT, TP_COLLECTIVES, PIPELINE):
         counter.update(seconds=0.0, bytes=0, calls=0)
 
 
@@ -66,11 +74,13 @@ def group_rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def stage_through_host(group, t: torch.Tensor) -> bool:
-    """True when a point-to-point transfer of ``t`` over ``group`` must go
-    through host buffers: a CUDA tensor on a gloo group
-    (:data:`GLOO_CARRIES_CUDA_P2P`; NCCL carries it)."""
-    return (t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+def stage_through_host(group, t) -> bool:
+    """True when a point-to-point transfer of ``t`` (a tensor, or the
+    device of the tensors) over ``group`` must go through host buffers: a
+    CUDA tensor on a gloo group (:data:`GLOO_CARRIES_CUDA_P2P`; NCCL
+    carries it)."""
+    dev = t.device if isinstance(t, torch.Tensor) else torch.device(t)
+    return (dev.type == "cuda" and dist.get_backend(group) == "gloo"
             and not GLOO_CARRIES_CUDA_P2P)
 
 
@@ -270,3 +280,54 @@ def ring_shift(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
             dev = tensors[0].device
             recvs = [r.to(dev, non_blocking=True) for r in recvs]
     return recvs
+
+
+def neighbour_exchange(group, device, to_next=None, to_prev=None,
+                       from_prev=None, from_next=None):
+    """One tick of the pipeline's hops over ``group`` (the ``pp`` group),
+    not cyclic: send ``to_next`` to ``pp`` rank + 1 and ``to_prev`` to
+    rank - 1, and receive from rank - 1 and rank + 1 a tensor of
+    ``from_prev`` / ``from_next`` (``(shape, dtype)``), each only where it
+    is not None, all in one ``batch_isend_irecv`` (no pair waits on
+    another). Both sides derive what moves from the same schedule, so
+    every send meets its receive. Returns ``(from rank - 1, from rank +
+    1)``, None where nothing was asked for, on ``device``. A CUDA tensor
+    on a gloo group goes through pinned host buffers
+    (:func:`stage_through_host`). Not differentiable (the schedules move
+    their own cotangents). Timed in :data:`PIPELINE`."""
+    me = group_rank(group)
+    sends = [(t.detach().contiguous(), peer) for t, peer in
+             ((to_next, me + 1), (to_prev, me - 1)) if t is not None]
+    wants = [(spec, peer) for spec, peer in
+             ((from_prev, me - 1), (from_next, me + 1))]
+    if not sends and all(spec is None for spec, _ in wants):
+        return None, None
+    staged = stage_through_host(group, device)
+    nbytes = sum(t.numel() * t.element_size() for t, _ in sends) + sum(
+        math.prod(spec[0]) * torch.empty((), dtype=spec[1]).element_size()
+        for spec, _ in wants if spec is not None)
+    with _timed(nbytes, PIPELINE):
+        ops, recvs = [], []
+        for t, peer in sends:
+            if staged:
+                buf = _pinned_like(t)
+                buf.copy_(t)
+                t = buf
+            ops.append(dist.P2POp(dist.isend, t,
+                                  dist.get_global_rank(group, peer), group))
+        for spec, peer in wants:
+            if spec is None:
+                recvs.append(None)
+                continue
+            shape, dtype = spec
+            buf = (torch.empty(shape, dtype=dtype, pin_memory=True) if staged
+                   else torch.empty(shape, dtype=dtype, device=device))
+            ops.append(dist.P2POp(dist.irecv, buf,
+                                  dist.get_global_rank(group, peer), group))
+            recvs.append(buf)
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if staged:
+            recvs = [r if r is None else r.to(device, non_blocking=True)
+                     for r in recvs]
+    return recvs[0], recvs[1]

@@ -1,16 +1,20 @@
 """The stage's mesh: the port of ``edl_tpu/parallel/mesh.py`` over the
-axes the port runs: data parallelism, FSDP, tensor parallelism (``tp``),
-sequence parallelism (``sp``) and expert parallelism (``ep``).
+axes the port runs: pipeline parallelism (``pp``), data parallelism, FSDP,
+tensor parallelism (``tp``), sequence parallelism (``sp``), expert
+parallelism (``ep``) and the CTR tables' model parallelism (``mp``).
 
 The JAX package shards over a ``jax.sharding.Mesh`` and lets XLA insert the
 collectives. Here the mesh is the stage's process group, one device per
 process (``init`` selected it), laid out row-major in the JAX package's
-axis order ``("dp", "fsdp", "tp", "sp", "ep")``: the last axis varies
-fastest, so rank ``r`` of a ``dp × tp × sp × ep`` mesh holds ``ep`` index
-``r % ep``, ``sp`` index ``r // ep % sp``, ``tp`` index
+axis order ``("pp", "dp", "fsdp", "tp", "sp", "ep", "mp")``: the last
+axis varies fastest, so rank ``r`` of a ``dp × tp × sp × ep`` mesh holds
+``ep`` index ``r % ep``, ``sp`` index ``r // ep % sp``, ``tp`` index
 ``r // (sp·ep) % tp`` and ``dp`` index ``r // (tp·sp·ep)`` (of a
 ``dp × fsdp`` mesh: ``dp`` index ``r // fsdp``, ``fsdp`` index
-``r % fsdp``).
+``r % fsdp``). ``pp`` is the outermost axis, as the JAX callers write it
+first (``{"pp": 2, "dp": 2}``) and JAX lays devices out in the dict's
+order: the stage of rank ``r`` is ``r // (world / pp)``. ``mp`` comes
+last, as the CTR example writes ``{"dp": -1, "mp": 2}``.
 
 - Data parallelism: :func:`data_parallel` wraps the model in
   ``DistributedDataParallel``, which broadcasts rank 0's parameters and
@@ -45,6 +49,17 @@ groups' rows concatenated in ``dp`` order.
   ``sp`` chunk of the sequence (:func:`shard_seq`, global RoPE positions
   from :func:`seq_positions`). ``fsdp`` does not combine with ``tp``,
   ``sp`` or ``ep`` in the port (left out of ROADMAP M12-M15).
+- Pipeline parallelism: at ``pp`` > 1 each ``pp`` rank holds one stage
+  of the model (``parallel.pipeline``, ``pipeline_1f1b``,
+  ``pipeline_lm``); the mesh builds a ``pp`` group (the ranks of one
+  ``dp`` index, one per stage) and a ``dp`` group inside each stage.
+  ``pp`` combines with ``dp`` only, as the JAX pipeline shards over its
+  ``axis`` and ``batch_axis`` only.
+- The CTR tables' vocabulary over ``mp`` (``models.ctr.
+  CTR_EMBEDDING_RULES``): an ``mp`` group; the ranks of one group hold
+  the same rows of the batch and their own rows of each table, and
+  gradients are averaged over ``dp`` only. ``mp`` combines with ``dp``
+  only.
 
 Axes of size 1 are kept in ``Mesh.shape``.
 """
@@ -61,13 +76,14 @@ import torch.distributed as dist
 
 from edl_tpu_torch.utils.device import resolve_device
 
-DEFAULT_AXES = ("dp", "fsdp", "tp", "sp", "ep")
+DEFAULT_AXES = ("pp", "dp", "fsdp", "tp", "sp", "ep", "mp")
 
 # the stage's DeviceMesh, built once per process group (its sub-groups are
 # collective to create) and dropped with the group
 # (train.context._teardown_group): (key, DeviceMesh)
 _stage_mesh: Optional[Tuple[tuple, object]] = None
-# the sub-groups of a tp/sp/ep mesh, built once per process group and layout:
+# the sub-groups of a tp/sp/ep/pp/mp mesh, built once per process group and
+# layout:
 # (key, {axes tuple: this rank's group})
 _stage_groups: Optional[Tuple[tuple, dict]] = None
 
@@ -119,13 +135,16 @@ def _axes_key(shape: Dict[str, int], axes) -> tuple:
 
 def _build_groups(shape: Dict[str, int], rank: int) -> dict:
     """This rank's process group over each of ``tp``, ``sp``, ``ep``,
-    ``dp`` and ``dp × sp`` (collective: every rank creates every group, in
-    one order); an axis set of one rank gets None."""
+    ``pp``, ``mp``, ``dp`` and ``dp × sp`` (collective: every rank creates
+    every group, in one order); an axis set of one rank gets None."""
     world = math.prod(shape.values())
     coords = [_coords(shape, r) for r in range(world)]
     out = {}
-    for axes in (("tp",), ("sp",), ("ep",), ("dp",), ("dp", "sp")):
+    for axes in (("tp",), ("sp",), ("ep",), ("pp",), ("mp",), ("dp",),
+                 ("dp", "sp")):
         key = _axes_key(shape, axes)
+        if key in out:
+            continue  # ("dp", "sp") on a mesh without sp is ("dp",)
         if math.prod(shape[a] for a in key) == 1:
             out[key] = None
             continue
@@ -141,8 +160,9 @@ def _build_groups(shape: Dict[str, int], rank: int) -> dict:
 
 
 class Mesh:
-    """The stage's axes (``shape``: ``dp``, ``fsdp``, ``tp``, ``sp``, ``ep``
-    and the axes of size 1 the caller named), this rank's place on them
+    """The stage's axes (``shape``: ``pp``, ``dp``, ``fsdp``, ``tp``,
+    ``sp``, ``ep``, ``mp`` as named, ``dp`` always, and the axes of size 1
+    the caller named), this rank's place on them
     (``coords``) and its ``device``."""
 
     def __init__(self, shape: Dict[str, int], rank: int,
@@ -175,6 +195,25 @@ class Mesh:
         return self.shape.get("ep", 1)
 
     @property
+    def pp_size(self) -> int:
+        return self.shape.get("pp", 1)
+
+    @property
+    def mp_size(self) -> int:
+        return self.shape.get("mp", 1)
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's ``pp`` index: which stage of the pipeline it holds."""
+        return self.coords.get("pp", 0)
+
+    @property
+    def mp_rank(self) -> int:
+        """This rank's ``mp`` index: which rows of a vocab-sharded table it
+        holds."""
+        return self.coords.get("mp", 0)
+
+    @property
     def dp_rank(self) -> int:
         """This rank's ``dp`` index: which rows of the global batch it
         holds (the ranks of one ``fsdp``, ``tp``, ``sp`` or ``ep`` group
@@ -202,13 +241,15 @@ class Mesh:
 
     @property
     def model_parallel(self) -> bool:
-        """True when ``tp``, ``sp`` or ``ep`` is above 1."""
-        return self.tp_size > 1 or self.sp_size > 1 or self.ep_size > 1
+        """True when ``tp``, ``sp``, ``ep``, ``pp`` or ``mp`` is above 1:
+        the mesh's groups are then :meth:`group`'s own."""
+        return any(self.shape.get(a, 1) > 1
+                   for a in ("tp", "sp", "ep", "pp", "mp"))
 
     @property
     def device_mesh(self):
         """The ``("dp", "fsdp")`` DeviceMesh of the stage's process group
-        (None without one, and on a tp/sp/ep mesh, whose groups are
+        (None without one, and on a tp/sp/ep/pp/mp mesh, whose groups are
         :meth:`group`'s); its ``"dp"`` and ``"fsdp"`` sub-meshes carry
         their own groups. Built at the first use in a stage, collectively."""
         if not _joined() or self.model_parallel:
@@ -218,8 +259,8 @@ class Mesh:
     def group(self, axes):
         """The process group over ``axes`` (an axis name, or a tuple of
         them such as ``("dp", "sp")``) that holds this rank; None without
-        a process group, and on a tp/sp/ep mesh where the axes span one
-        rank."""
+        a process group, and on a tp/sp/ep/pp/mp mesh where the axes span
+        one rank."""
         if self.model_parallel:
             if not _joined():
                 return None
@@ -264,14 +305,16 @@ def _model_groups(mesh: Mesh) -> dict:
 
 def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
     """The stage's mesh over every rank of the process group (one rank and
-    no group in a one-worker stage). ``axes`` may name ``dp``, ``fsdp``,
-    ``tp``, ``sp`` and ``ep`` at any sizes whose product is the world, one
-    of them ``-1`` (it fills), and other axes at size 1; ``fsdp`` > 1
-    beside ``tp``, ``sp`` or ``ep`` > 1 raises. ``device`` is the card
-    unless the caller names the CPU; on the card, the device ``init``
-    selected. At ``fsdp`` > 1 the DeviceMesh and its sub-groups are built
-    now (collective), so that batch norm finds its ``dp`` group; at
-    ``tp``, ``sp`` or ``ep`` > 1 the :meth:`Mesh.group` sub-groups are."""
+    no group in a one-worker stage). ``axes`` may name ``pp``, ``dp``,
+    ``fsdp``, ``tp``, ``sp``, ``ep`` and ``mp`` at any sizes whose product
+    is the world, one of them ``-1`` (it fills), and other axes at size 1;
+    ``pp`` or ``mp`` > 1 beside ``fsdp``, ``tp``, ``sp``, ``ep`` (or each
+    other) > 1 raises, and so does ``fsdp`` > 1 beside ``tp``, ``sp`` or
+    ``ep`` > 1. ``device`` is the card unless the caller names the CPU; on
+    the card, the device ``init`` selected. At ``fsdp`` > 1 the DeviceMesh
+    and its sub-groups are built now (collective), so that batch norm
+    finds its ``dp`` group; at ``tp``, ``sp``, ``ep``, ``pp`` or ``mp`` > 1
+    the :meth:`Mesh.group` sub-groups are."""
     joined = _joined()
     world = dist.get_world_size() if joined else 1
     rank = dist.get_rank() if joined else 0
@@ -291,6 +334,13 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
         raise NotImplementedError(
             "mesh axis %r: the port shards over %s only"
             % (name, DEFAULT_AXES))
+    for axis, others in (("pp", ("fsdp", "tp", "sp", "ep", "mp")),
+                         ("mp", ("fsdp", "tp", "sp", "ep"))):
+        if axes.get(axis, 1) > 1 and any(axes.get(a, 1) > 1 for a in others):
+            raise NotImplementedError(
+                "%s > 1 beside %s > 1 is not ported: the JAX package shards "
+                "over %s and dp only: %r"
+                % (axis, ", ".join(others), axis, axes))
     if axes.get("fsdp", 1) > 1 and any(axes.get(a, 1) > 1
                                        for a in ("tp", "sp", "ep")):
         raise NotImplementedError(
@@ -299,7 +349,8 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, device="cuda") -> Mesh:
     if math.prod(axes.values()) != world:
         raise ValueError("axes %r do not cover %d ranks" % (axes, world))
     axes.setdefault("dp", 1)
-    # row-major in the JAX package's order (ep fastest), other axes after
+    # row-major in the JAX package's order (pp slowest, mp fastest), other
+    # axes after
     order = [a for a in DEFAULT_AXES if a in axes]
     axes = {a: axes[a] for a in order + [a for a in axes if a not in order]}
     dev = resolve_device(device)

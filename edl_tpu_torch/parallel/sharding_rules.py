@@ -15,7 +15,8 @@ mesh are dropped, a dimension the axis does not divide is replicated
 MLP's gate/up column-parallel (output dim on ``tp``), the attention output
 and the MLP's down row-parallel (input dim on ``tp``), the embedding and
 the LM head vocabulary-sharded. ``models.moe.MOE_EP_RULES`` (added to
-them) split the MoE blocks' expert banks over ``ep``.
+them) split the MoE blocks' expert banks over ``ep``, and
+``models.ctr.CTR_EMBEDDING_RULES`` the CTR tables' vocab over ``mp``.
 
 Where XLA inserts the collectives in the JAX package, here each rank keeps
 its slice of every sharded parameter (plain tensors, sliced in place: the
@@ -33,7 +34,9 @@ the train step calls after each backward:
   rank's loss is the mean over its block), and so is the reported loss.
   An expert bank split over ``ep`` is averaged over the ``dp × sp``
   ranks that hold the same experts; its gradient is whole on each rank
-  (the tokens are the same on every ``ep`` rank).
+  (the tokens are the same on every ``ep`` rank). So are a CTR table's
+  rows split over ``mp`` (the rows of the batch are the same on every
+  ``mp`` rank).
 
 Trap (b), the global GQA head map under the fallback, is the model's
 (``Attention.install_tp``).
@@ -132,7 +135,7 @@ def shard_params_by_rules(mesh, module: torch.nn.Module,
                           rules: Rules) -> torch.nn.Module:
     """Shard ``module``'s parameters over ``mesh`` by ``rules``, in place,
     and return it: each parameter keeps this rank's slice along every
-    dimension its resolved spec splits (over ``tp`` or ``ep``), the
+    dimension its resolved spec splits (over ``tp``, ``ep`` or ``mp``), the
     module installs its parallel forward
     (``module.install_parallel(mesh, specs)``) and the train step syncs the
     gradients (:func:`sync_gradients`). Call it on whole parameters
@@ -146,10 +149,10 @@ def shard_params_by_rules(mesh, module: torch.nn.Module,
     split = {n: _sharded_dims(mesh, s) for n, s in specs.items()}
     for name, dims in split.items():
         for _dim, axis in dims:
-            if axis not in ("tp", "ep"):
+            if axis not in ("tp", "ep", "mp"):
                 raise NotImplementedError(
                     "rule splits %s over %r: the port shards parameters "
-                    "over tp and ep only" % (name, axis))
+                    "over tp, ep and mp only" % (name, axis))
     install = getattr(module, "install_parallel", None)
     if any(split.values()) and install is None:
         raise NotImplementedError(
@@ -220,7 +223,7 @@ def sync_gradients(module: torch.nn.Module, loss: torch.Tensor = None):
 def gather_params(mesh, module: torch.nn.Module) -> Dict[str, torch.Tensor]:
     """Every parameter whole (``state_dict`` names), gathered over the
     axes :func:`shard_params_by_rules` split it on (expert banks over
-    ``ep``); collective over the ``tp`` and ``ep`` groups. For
+    ``ep``, CTR tables over ``mp``); collective over those groups. For
     ``convert.to_flax`` and comparisons."""
     from edl_tpu_torch.parallel.collectives import _gather_stacked
 

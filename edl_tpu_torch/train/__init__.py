@@ -1,9 +1,8 @@
 """Training: the port of ``edl_tpu.train``: the step builders, the
-schedules and the elastic plane (``init``, ``worker_barrier``,
+schedules, the optimizers with ``chain`` and DGC's ``topk_compression``,
+the streaming AUC, and the elastic plane (``init``, ``worker_barrier``,
 ``ElasticTrainer`` — stop-resume, hot restage and graceful drain — and the
 checkpoint's ``AdjustRegistry``).
-
-The AUC metrics and DGC compression come with ROADMAP M17.
 """
 
 from edl_tpu_torch.checkpoint.adjust import AdjustRegistry, linear_scaled_lr
@@ -15,7 +14,15 @@ from edl_tpu_torch.train.context import (
 )
 from edl_tpu_torch.train.loop import ElasticTrainer
 
-from edl_tpu_torch.train.optim import adam, adamw, sgd
+from edl_tpu_torch.train.compression import topk_compression
+from edl_tpu_torch.train.metrics import (
+    AUCState,
+    auc_compute,
+    auc_init,
+    auc_merge,
+    auc_update,
+)
+from edl_tpu_torch.train.optim import adam, adamw, chain, sgd
 from edl_tpu_torch.train.schedules import (
     piecewise_decay,
     scaled_schedule_factory,
@@ -58,4 +65,11 @@ __all__ = [
     "adamw",
     "adam",
     "sgd",
+    "chain",
+    "topk_compression",
+    "AUCState",
+    "auc_init",
+    "auc_update",
+    "auc_compute",
+    "auc_merge",
 ]

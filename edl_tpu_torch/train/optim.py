@@ -14,6 +14,10 @@ test that runs optax and the port side by side for several steps:
   ``scale(-lr)``: ``torch.optim.SGD(momentum=m, dampening=0)``.
 - a schedule (``step -> lr``) is evaluated at the count before the
   update, so the first update uses ``schedule(0)``.
+
+:func:`chain` is ``optax.chain``: gradient transforms (``train.
+compression.topk_compression``) rewrite ``.grad`` in order, then the last
+transform's optimizer steps.
 """
 
 from __future__ import annotations
@@ -93,3 +97,36 @@ def sgd(learning_rate: LearningRate, momentum=None,
         ),
         learning_rate,
     )
+
+
+class ChainState(OptState):
+    """The states of a :func:`chain`'s transforms; ``optimizer`` is the
+    one torch optimizer among them (the checkpoint's)."""
+
+    def __init__(self, states: list) -> None:
+        optimizers = [s.optimizer for s in states if s.optimizer is not None]
+        if len(optimizers) != 1:
+            raise ValueError("a chain holds one optimizer, got %d"
+                             % len(optimizers))
+        super().__init__(optimizers[0])
+        self.states = states
+
+
+class _Chain:
+    def __init__(self, transforms) -> None:
+        self.transforms = transforms
+
+    def init(self, params) -> ChainState:
+        params = list(params)
+        return ChainState([t.init(params) for t in self.transforms])
+
+    def update(self, state: ChainState) -> None:
+        for t, s in zip(self.transforms, state.states):
+            t.update(s)
+        state.count += 1
+
+
+def chain(*transforms) -> _Chain:
+    """``optax.chain``: each transform's ``update`` in order on the same
+    ``.grad`` (gradient transforms first, one optimizer last)."""
+    return _Chain(transforms)

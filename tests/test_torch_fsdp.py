@@ -132,7 +132,8 @@ def test_fsdp_spec_matches_jax(shape, size):
 def test_mesh_axes_and_refusals():
     """Without a process group: one rank, ``-1`` fills, axes of size 1 are
     kept; tp, sp and ep are axes of the mesh now (M12, M14, M15: at 2 they
-    do not cover one rank), and fsdp does not combine with tp, sp or ep."""
+    do not cover one rank), and fsdp does not combine with tp, sp or ep;
+    nor pp and mp with anything but dp."""
     mesh = tmesh.make_mesh({"fsdp": -1}, device="cpu")
     assert mesh.shape == {"dp": 1, "fsdp": 1} and mesh.device_mesh is None
     assert (mesh.dp_rank, mesh.dp_size, mesh.fsdp_rank) == (0, 1, 0)
@@ -151,6 +152,27 @@ def test_mesh_axes_and_refusals():
             tmesh.make_mesh({"fsdp": 2, axis: 2}, device="cpu")
     with pytest.raises(ValueError, match="only one axis"):
         tmesh.make_mesh({"dp": -1, "fsdp": -1}, device="cpu")
+    # pp is the outermost axis and mp the innermost (M16, M17); each
+    # combines with dp only
+    mesh = tmesh.make_mesh({"dp": -1, "pp": 1}, device="cpu")
+    assert list(mesh.shape) == ["pp", "dp"]
+    assert (mesh.pp_rank, mesh.pp_size, mesh.group("pp")) == (0, 1, None)
+    mesh = tmesh.make_mesh({"mp": 1, "dp": -1}, device="cpu")
+    assert list(mesh.shape) == ["dp", "mp"]
+    assert (mesh.mp_rank, mesh.mp_size, mesh.group("mp")) == (0, 1, None)
+    assert tmesh.Mesh({"pp": 2, "dp": 2}, 2, "cpu").coords == {"pp": 1,
+                                                               "dp": 0}
+    assert tmesh.Mesh({"dp": 2, "mp": 2}, 1, "cpu").coords == {"dp": 0,
+                                                               "mp": 1}
+    for axis in ("pp", "mp"):
+        with pytest.raises(ValueError, match="do not cover 1 ranks"):
+            tmesh.make_mesh({"dp": 1, axis: 2}, device="cpu")
+    for axis in ("fsdp", "tp", "sp", "ep", "mp"):
+        with pytest.raises(NotImplementedError, match="pp > 1 beside"):
+            tmesh.make_mesh({"pp": 2, axis: 2}, device="cpu")
+    for axis in ("fsdp", "tp", "sp", "ep"):
+        with pytest.raises(NotImplementedError, match="mp > 1 beside"):
+            tmesh.make_mesh({"mp": 2, axis: 2}, device="cpu")
 
 
 # -- (ii) the dp x fsdp ResNet step against the JAX step -------------------------

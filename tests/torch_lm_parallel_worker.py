@@ -36,6 +36,23 @@ run in order by every rank; an op with its own ``axes`` runs on that mesh
   ``data_parallel`` instead (DDP). Every rank writes ``out`` with
   ``.<rank>``: its losses (``loss``), ``aux_loss``, its local ``wi``/``wo``
   shapes; rank 0 also the gathered parameters (``param/<name>``).
+- ``{"op": "pp", "axes": {...}, "weights": NPZ, "cfg": {...}, "data":
+  NPZ, "M": m, "run": "logits"|"gpipe"|"1f1b"|"adam", "batch_axis":
+  null|"dp", "out": NPZ}``: this rank's ``LMStage`` of the fp32
+  TransformerLM of ``cfg`` (its dict from ``split_lm_params`` of the
+  converted weights) on the mesh ``axes`` (``pp`` first), over ``x``
+  (and ``y``): ``logits`` writes ``pipeline_lm_logits``; ``gpipe`` /
+  ``1f1b`` the loss of ``pipeline_lm_loss`` / ``pipeline_lm_1f1b_grads``,
+  the stage's gradients (``grad/<name>``) and ``live_max``; ``adam``
+  (``steps``, ``lr``) the losses of that many Adam steps over GPipe and
+  the stage's parameters after them (``param/<name>``). Every rank
+  writes ``out`` with ``.<rank>``.
+- ``{"op": "ctr_steps", "axes": {...}, "weights": NPZ, "cfg": {...},
+  "data": NPZ, "steps": n, "lr": x, "out": NPZ}``: the fp32 DeepFM of
+  ``cfg`` from converted weights, its tables split over ``mp`` by
+  ``CTR_EMBEDDING_RULES``, ``n`` Adam steps on this rank's ``dp`` rows
+  of the global ``sparse``/``dense``/``labels``; every rank writes its
+  losses and its table shapes, rank 0 the gathered parameters.
 """
 
 import json
@@ -66,15 +83,21 @@ from edl_tpu_torch.parallel import (  # noqa: E402
     TRANSFORMER_TP_RULES,
     data_parallel,
     gather_params,
+    lm_stage,
     make_mesh,
+    pipeline_lm_1f1b_grads,
+    pipeline_lm_logits,
+    pipeline_lm_loss,
     ring_attention_sharded,
     seq_positions,
     shard_params_by_rules,
     shard_seq,
+    split_lm_params,
     ulysses_attention,
     ulysses_attention_sharded,
 )
 from edl_tpu_torch.train import (  # noqa: E402
+    adam,
     adamw,
     create_state,
     cross_entropy_loss,
@@ -218,8 +241,77 @@ def moe_steps(op):
     np.savez(_rank_path(op["out"]), **out)
 
 
+def ctr_steps(op):
+    from edl_tpu_torch.models import (CTR_EMBEDDING_RULES, DeepFM,
+                                      binary_cross_entropy_loss)
+
+    mesh = make_mesh(op["axes"], device="cpu")
+    data = np.load(op["data"])
+    model = convert.load_params(
+        DeepFM(dtype=torch.float32, device="cpu", **op["cfg"]), op["weights"])
+    state = create_state(model, None, adam(op["lr"]), device="cpu")
+    shard_params_by_rules(mesh, model, CTR_EMBEDDING_RULES)
+    rows = data["labels"].shape[0] // mesh.dp_size
+    mine = slice(mesh.dp_rank * rows, (mesh.dp_rank + 1) * rows)
+    batch = ((torch.from_numpy(data["sparse"][mine]),
+              torch.from_numpy(data["dense"][mine])),
+             torch.from_numpy(data["labels"][mine]))
+    step = make_train_step(binary_cross_entropy_loss)
+    losses = []
+    for _ in range(op["steps"]):
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    params = gather_params(mesh, model)
+    out = {"loss": np.asarray(losses),
+           "shape/embedding": np.asarray(model.embedding.embedding.shape),
+           "shape/wide": np.asarray(model.wide.embedding.shape)}
+    if RANK == 0:
+        out.update({"param/" + k: v.numpy() for k, v in params.items()})
+    np.savez(_rank_path(op["out"]), **out)
+
+
+def pp(op):
+    mesh = make_mesh(op["axes"], device="cpu")
+    data = np.load(op["data"])
+    model = TransformerLM(dtype=torch.float32, device="meta", **op["cfg"])
+    stage = lm_stage(model, mesh)
+    stage.to_empty(device="cpu")
+    whole = convert.load_npz(op["weights"])
+    stage.load_state_dict(
+        split_lm_params(model, whole, mesh.pp_size)[mesh.pp_rank])
+    x = torch.from_numpy(data["x"])
+    y = torch.from_numpy(data["y"]) if "y" in data.files else None
+    args = dict(num_microbatches=op["M"], batch_axis=op.get("batch_axis"))
+    out, stats = {}, {}
+    if op["run"] == "logits":
+        out["logits"] = pipeline_lm_logits(stage, x, mesh, **args).numpy()
+    elif op["run"] == "gpipe":
+        out["loss"] = pipeline_lm_loss(stage, x, y, mesh, stats=stats,
+                                       **args).numpy()
+        grads = {n: p.grad for n, p in stage.named_parameters()}
+    elif op["run"] == "1f1b":
+        loss, grads = pipeline_lm_1f1b_grads(stage, x, y, mesh, stats=stats,
+                                             **args)
+        out["loss"] = loss.numpy()
+    else:
+        tx = adam(op["lr"])
+        opt = tx.init(stage.parameters())
+        losses = []
+        for _ in range(op["steps"]):
+            losses.append(float(pipeline_lm_loss(stage, x, y, mesh, **args)))
+            tx.update(opt)
+        out["loss"] = np.asarray(losses)
+        out.update({"param/" + n: p.detach().numpy()
+                    for n, p in stage.named_parameters()})
+    if op["run"] in ("gpipe", "1f1b"):
+        out.update({"grad/" + n: g.numpy() for n, g in grads.items()})
+        out["live_max"] = np.asarray(stats["live_max"])
+    np.savez(_rank_path(op["out"]), **out)
+
+
 OPS = {"tp_steps": tp_steps, "generate": generate, "attn": attn,
-       "ulysses_errors": ulysses_errors, "moe_steps": moe_steps}
+       "ulysses_errors": ulysses_errors, "moe_steps": moe_steps, "pp": pp,
+       "ctr_steps": ctr_steps}
 for op in cfg["ops"]:
     OPS[op["op"]](op)
 dist.barrier()
