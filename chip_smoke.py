@@ -243,6 +243,29 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              DeepFM's parameters, the card against the CPU within 1e-6;
              (d) the DGC threshold of a [32000, 1024] tensor against
              numpy's percentile, within one fp32 ulp.
+17. restage_planes - (run after phase elastic) the fast-restage planes
+             in one launch of phase elastic's flagship worker (4 layers)
+             on the port's store and launchers, 2 epochs: pod A
+             (``--prewarm`` with ``EDL_PREWARM_FORCE=1``, ``--standby``,
+             a named compile cache dir) trains alone; its prewarmer runs
+             a shadow stage of world 2 (two ranks beside the live one on
+             the card, ``EDL_WARM_ONLY=1``) that must exit 0, and its AOT
+             ladder publishes world 2's rung plan under ``mem/plan/2``;
+             only then pod B joins from a new host's checkout (a copy
+             without ``ops/build/``) with ``--standby`` and an empty named
+             cache dir. B's worker is its standby shell's pid, and before
+             its first step its dir holds A's kernel libraries
+             byte-identical, pulled by the shell from A's exchange; it
+             resolves both without ``nvcc`` (no miss, no write). A sampler
+             reads every shell's device files, mapped libraries and
+             ``nvidia-smi``'s compute processes until its activation: none
+             holds what a CUDA context needs, and one was seen waiting
+             with both kernel libraries loaded. Every step of the grown
+             stage launches 8/8/8 flash kernels (4 layers, GNS on). Reports
+             the shadow stage's and the rung's seconds, the pull's entries,
+             bytes and seconds beside phase build's nvcc seconds, and the
+             drain-token bump to the grown stage's first step beside phase
+             elastic's cold grow (not gated).
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -258,7 +281,9 @@ fsdp's, ``python3 chip_smoke.py --lm-launched OUT_DIR RANK PORT``
 phase lm_parallel's two-rank workers (they also run phase moe's (c),
 phase pipeline's (a) and phase ctr's (b)), ``python3 chip_smoke.py
 --pp-launched OUT_DIR RANK PORT`` phase pipeline's four-rank workers, all
-started by the phases themselves.
+started by the phases themselves. ``python3 chip_smoke.py --phase NAME
+[N]`` runs phase ``distill`` or ``restage_planes`` alone N times after
+the device and build phases, and prints no result line.
 """
 
 import concurrent.futures
@@ -1687,9 +1712,12 @@ def launched_child(torch, out_dir: str) -> None:
     until the drain token moves; with ``SMOKE_DRAIN=1`` the first stage
     to take epoch ``ELASTIC_DRAIN_EPOCH``'s first step holds until its
     pod's preemption notice). ``SMOKE_DIGEST=1`` digests every save and
-    restore; ``SMOKE_ASYNC=1`` saves asynchronously (phase tiers).
-    Writes ``rec.<pid>.json`` (rewritten at every epoch's end, so a
-    worker its launcher kills leaves what it did) and
+    restore; ``SMOKE_ASYNC=1`` saves asynchronously (phase tiers);
+    ``SMOKE_EPOCHS`` trains that many epochs; ``SMOKE_CACHE=1`` records
+    the compile cache dir's entries when the data is first asked for
+    (before the first step) and the kernel libraries' resolutions (phase
+    restage_planes). Writes ``rec.<pid>.json`` (rewritten at every
+    epoch's end, so a worker its launcher kills leaves what it did) and
     ``loss.<epoch>.<stage>.<rank>``."""
     import numpy as np
 
@@ -1719,10 +1747,14 @@ def launched_child(torch, out_dir: str) -> None:
     if digest:
         _digesting_save(torch, out_dir)
     drain = os.environ.get("SMOKE_DRAIN") == "1"
+    epochs = int(os.environ.get("SMOKE_EPOCHS", ELASTIC_EPOCHS))
+    cache = os.environ.get("SMOKE_CACHE") == "1"
     cfg = ELASTIC_TRAIN
 
     def data_fn(epoch):
         env = context.current_env()
+        if cache and "cache" not in rec:
+            rec["cache"] = _cache_record()
         if epoch in (ELASTIC_JOIN_EPOCH, ELASTIC_KILL_EPOCH):
             drill.hold_at_epoch(out_dir, epoch, ELASTIC_SETTLE_S)
         base = steps[0]
@@ -1760,6 +1792,13 @@ def launched_child(torch, out_dir: str) -> None:
         rec["save_s"] = {ev["args"].get("step"): ev["dur"] / 1e6
                          for ev in _spans(events, "ckpt_save")}
         rec["restages"] = trainer.restages
+        if cache:
+            from edl_tpu_torch.ops import _build
+            from edl_tpu_torch.train import aot
+
+            rec["cache_events"] = aot.cache_event_counts()
+            rec["nvcc_builds"] = _build._M_RESTAGE_COMPILE.count()
+            rec["cache_dir"] = _build._cache_dir
         _write_json(os.path.join(out_dir, "rec.%d.json" % os.getpid()), rec)
 
     def on_epoch_end(epoch, metrics):
@@ -1774,7 +1813,7 @@ def launched_child(torch, out_dir: str) -> None:
 
     _zero_counts()  # this worker's part of the elastic path starts here
     try:
-        state = trainer.fit(data_fn, ELASTIC_EPOCHS, on_epoch_end=on_epoch_end)
+        state = trainer.fit(data_fn, epochs, on_epoch_end=on_epoch_end)
         torch.cuda.synchronize()
         rec["final_step"] = int(state.step)
     finally:
@@ -1787,6 +1826,26 @@ def launched_child(torch, out_dir: str) -> None:
             torch.cuda.synchronize()
             rec["warm_rebuild_s"] = time.monotonic() - t0
         snapshot()
+
+
+def _cache_record() -> dict:
+    """What the compile cache dir (``EDL_COMPILE_CACHE_DIR``) holds now:
+    each entry's sha256, whether the standby shell's pull reached a peer
+    (``EDL_CACHE_PULLED``), the bytes the exchange pulled into this
+    process and its kernel-library resolutions so far."""
+    from edl_tpu_torch.ops import _build
+    from edl_tpu_torch.train import aot
+
+    path = os.environ.get("EDL_COMPILE_CACHE_DIR", "")
+    entries = {}
+    for name in sorted(os.listdir(path) if os.path.isdir(path) else ()):
+        if aot._is_entry(name):
+            with open(os.path.join(path, name), "rb") as fh:
+                entries[name] = hashlib.sha256(fh.read()).hexdigest()
+    return {"dir": path, "entries": entries, "ts": time.time(),
+            "pulled_env": os.environ.get("EDL_CACHE_PULLED", ""),
+            "rx_bytes": aot._M_XCHG_BYTES.value(dir="rx"),
+            "events": aot.cache_event_counts()}
 
 
 def _ddp_check(torch) -> dict:
@@ -2376,6 +2435,366 @@ def phase_elastic(torch, smi: str, train: dict) -> dict:
           "elastic loss did not fall: %s" % ref_losses)
     check(ddp["max_rel_diff"] <= TOL_DDP,
           "DDP over one NCCL rank changed the losses: %s" % ddp)
+    return out
+
+
+PLANES_JOB = "chip-smoke-planes"
+PLANES_EPOCHS = 2  # world 1, then world 2 from epoch ELASTIC_JOIN_EPOCH
+PLANES_WARM_DELAY_S = 10.0  # A's first step comes first
+PLANES_RESPAWN_S = 5.0  # a consumed shell's replacement
+PLANES_SAMPLE_S = 0.25  # the CUDA-context sampler's period
+_LOG_TS = re.compile(r"^\[\w+ (\d{4}-\d\d-\d\d \d\d:\d\d:\d\d),(\d{3}) ")
+
+
+def _log_events(path: str, pattern: str) -> list:
+    """``(wall seconds, match)`` for each line of a launcher log that
+    ``pattern`` matches (the logger's timestamps are local wall time)."""
+    out = []
+    with open(path, errors="replace") as fh:
+        for line in fh:
+            found = re.search(pattern, line)
+            stamp = _LOG_TS.match(line)
+            if found and stamp:
+                t = time.mktime(time.strptime(stamp.group(1),
+                                              "%Y-%m-%d %H:%M:%S"))
+                out.append((t + int(stamp.group(2)) / 1e3, found))
+    return out
+
+
+def _cuda_holders(pids) -> dict:
+    """For each pid: whether it holds the card's device files open, maps
+    ``libcuda.so``, or is listed by ``nvidia-smi`` as a compute
+    process: a CUDA context needs each (libcuda alone makes none)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=30).stdout.split()
+    out = {"smi": sorted(int(p) for p in smi if p.isdigit())}
+    for pid in pids:
+        fds = maps = None
+        try:
+            fds = [os.readlink("/proc/%d/fd/%s" % (pid, fd))
+                   for fd in os.listdir("/proc/%d/fd" % pid)]
+            with open("/proc/%d/maps" % pid) as fh:
+                maps = fh.read()
+        except OSError:
+            pass  # gone (or activated and exited)
+        if fds is None:
+            continue
+        out[pid] = {
+            "device_fd": any(re.match(r"/dev/nvidia\d+$", f) for f in fds),
+            "libcuda": maps is not None and "libcuda.so" in maps,
+            "smi": pid in out["smi"]}
+    return out
+
+
+class _ShellSampler(threading.Thread):
+    """Samples every standby shell the phase's launchers log, until each
+    is activated: whether it holds anything a CUDA context needs, and
+    whether it had preloaded the kernel libraries then."""
+
+    def __init__(self, logs) -> None:
+        super().__init__(daemon=True)
+        self.logs = logs
+        self.samples = []  # (ts, pid, preloaded libraries, holders)
+        self.smi = set()  # every pid nvidia-smi listed meanwhile
+        # the control: each activated shell's holders once it trains
+        self.after = {}
+        self.stop = threading.Event()
+
+    def shells(self):
+        spawned, activated = {}, set()
+        for log in self.logs():
+            for _t, m in _log_events(log, r"standby shell pid=(\d+) spawned"):
+                spawned[int(m.group(1))] = log
+            for _t, m in _log_events(log, r"standby pid=(\d+) activated"):
+                activated.add(int(m.group(1)))
+        return spawned, activated
+
+    def run(self) -> None:
+        while not self.stop.wait(PLANES_SAMPLE_S):
+            try:
+                spawned, activated = self.shells()
+                idle = [p for p in spawned if p not in activated]
+                ts = time.time()
+                held = _cuda_holders(list(spawned))
+                self.smi.update(held.pop("smi"))
+                for pid in activated:
+                    if pid in held:
+                        self.after[pid] = held[pid]
+                # still idle after the look: a sample of a waiting shell
+                _spawned, activated = self.shells()
+                for pid in idle:
+                    if pid in held and pid not in activated:
+                        self.samples.append((ts, pid, _preloaded(pid),
+                                             held[pid]))
+            except Exception as exc:  # noqa: BLE001 — reported below
+                self.samples.append((time.time(), -1, None, repr(exc)))
+
+
+def _preloaded(pid: int) -> list:
+    """The kernel libraries process ``pid`` has mapped (``ops/_build``'s
+    ``lib<name>-<hash>.so``)."""
+    try:
+        with open("/proc/%d/maps" % pid) as fh:
+            maps = fh.read()
+    except OSError:
+        return []
+    return sorted(set(re.findall(r"/(lib(?:%s)-[0-9a-f]{16}\.so)"
+                                 % "|".join(SOURCES), maps)))
+
+
+def _new_host(dst: str) -> None:
+    """A checkout as a new host has it: the sources, no kernel library
+    built (``ops/build/`` left out) and no bytecode."""
+    import shutil
+
+    os.makedirs(dst)
+    shutil.copytree(os.path.join(HERE, "edl_tpu_torch"),
+                    os.path.join(dst, "edl_tpu_torch"),
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy2(os.path.abspath(__file__), dst)
+
+
+def _planes_job(work: str) -> dict:
+    """Phase restage_planes' one launch (see the module docstring); what
+    the phase checks and reports, raw."""
+    from edl_tpu_torch.store.client import StoreClient
+
+    job = PLANES_JOB
+    host_b = os.path.join(work, "host-b")
+    _new_host(host_b)
+    dirs = {p: os.path.join(work, "cache-" + p) for p in "AB"}
+    for d in dirs.values():
+        os.makedirs(d)
+    cp = _ControlPlane(
+        work, job, False, SMOKE_EPOCHS=str(PLANES_EPOCHS), SMOKE_CACHE="1",
+        EDL_PREWARM_FORCE="1", EDL_PREWARM_DELAY=str(PLANES_WARM_DELAY_S),
+        EDL_STANDBY_RESPAWN_DELAY=str(PLANES_RESPAWN_S))
+    client = StoreClient(cp.endpoint, timeout=10.0)
+    sampler = _ShellSampler(lambda: [p.log for p in cp.procs[1:]])
+    res = {"job": job}
+    t0 = time.time()
+    try:
+        sampler.start()
+        a = cp.pod(args=["--prewarm", "--standby", "--compile_cache_dir",
+                         dirs["A"]])
+
+        def ready():
+            warm = client.get("/%s/warm/2" % job) or b""
+            return (cp.reached(ELASTIC_JOIN_EPOCH) and warm.startswith(b"done:")
+                    and client.get("/%s/mem/plan/2" % job) is not None)
+
+        _wait(ready, "planes: A's epoch %d, shadow stage and rung of world 2"
+              % ELASTIC_JOIN_EPOCH, [a])
+        res["ready_s"] = time.time() - t0
+        res["rung_before_join"] = json.loads(
+            client.get("/%s/mem/plan/2" % job))
+        res["warm_claim"] = client.get("/%s/warm/2" % job).decode()
+        res["a_cache_before_join"] = _dir_digests(dirs["A"])
+        res["join_ts"] = time.time()
+        b = cp.pod(args=["--standby", "--compile_cache_dir", dirs["B"]],
+                   env={"PYTHONPATH": host_b},
+                   script=[os.path.join(host_b, "chip_smoke.py"),
+                           "--elastic-launched", cp.out])
+        res["a_rc"] = a.wait(timeout=ELASTIC_WAIT_S)
+        res["b_rc"] = b.wait(timeout=ELASTIC_WAIT_S)
+        res["end_s"] = time.time() - t0
+        items = cp.items()
+        res["job_status"] = (items.get("/%s/job/status" % job)
+                             or (b"",))[0].decode()
+        res["bump_ts"] = {}
+        for key, (value, _lease) in items.items():
+            found = re.match(r"/%s/events/([0-9a-f]+)/drain\." % job, key)
+            if found:
+                res["bump_ts"][found.group(1)] = float(value)
+        res["records"] = cp.records()
+        res["flight"] = cp.flight()
+        res["dirs"] = dirs
+        res["b_cache_after"] = _dir_digests(dirs["B"])
+        res["logs"] = {"a": a.log, "b": b.log}
+        res["activated"] = {
+            int(m.group(1)): t for log in (a.log, b.log)
+            for t, m in _log_events(log, r"standby pid=(\d+) activated")}
+        res["shells"] = sorted(sampler.shells()[0])
+        res["launcher_logs"] = {k: open(p).read()
+                                for k, p in res["logs"].items()}
+        res["warm_logs"] = {n: _tail(os.path.join(cp.logs, n), 1).strip()
+                            for n in sorted(os.listdir(cp.logs))
+                            if n.startswith("warmlog.")}
+    except BaseException:
+        for name in sorted(os.listdir(cp.logs)):
+            sys.stderr.write("--- %s\n%s" % (
+                name, _tail(os.path.join(cp.logs, name))))
+        raise
+    finally:
+        sampler.stop.set()
+        sampler.join(timeout=10)
+        client.close()
+        cp.close()
+    res["samples"] = sampler.samples
+    res["smi_pids"] = sampler.smi
+    res["shells_after"] = sampler.after
+    return res
+
+
+def _dir_digests(path: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), "rb") as fh:
+            out[name] = hashlib.sha256(fh.read()).hexdigest()
+    return out
+
+
+def phase_restage_planes(torch, smi: str, elastic: dict,
+                         build_s: float) -> dict:
+    """The fast-restage planes on the card (see the module docstring):
+    the prewarmer's shadow stage, the AOT ladder's rung plan, the
+    compile-cache exchange into a new host's empty dir and the standby
+    shells, in one two-pod launch. The work directory is removed
+    afterwards."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.ops import _build
+
+    work = tempfile.mkdtemp(prefix="edl-planes-")
+    try:
+        res = _planes_job(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    layers = ELASTIC_TRAIN["num_layers"]
+    libs = sorted(_build.library_name(n) for n in SOURCES)
+    recs = res["records"]
+    flight = res.pop("flight")
+    shadow = [r for r in recs if r["stage"].startswith("warm-")]
+    live = [r for r in recs if not r["stage"].startswith("warm-")]
+    grown = [r for r in live if r["world"] == 2]
+    stage2 = grown[0]["stage"] if grown else None
+    joiner = [r for r in grown if r["cache"]["dir"] == res["dirs"]["B"]]
+    b_rec = joiner[0] if joiner else {}
+    bump = res["bump_ts"].get(stage2)
+    grow = [{"rank": r["rank"], "pod": "B" if r is b_rec else "A",
+             "pid": r["pid"], "standby": r["pid"] in res["activated"],
+             "spawn_to_first_step_s": r["first_step_end_ts"][0] - r[
+                 "spawn_ts"],
+             "bump_to_first_step_s": r["first_step_end_ts"][0] - bump,
+             "import_s": r["import_s"], "create_state_s": r["create_state_s"],
+             "restore_s": r.get("restore_s")} for r in grown]
+    pulls = [e for e in flight if e.get("event") == "exchange"
+             and e.get("pid") == b_rec.get("pid")]
+    rungs = [e for e in flight if e.get("event") == "aot"
+             and e.get("outcome") == "ok"]
+    rung_plans = [e for e in flight if e.get("event") == "mem_plan"
+                  and e.get("rung")]
+    idle = [s for s in res["samples"] if s[1] > 0]
+    errors = [s for s in res["samples"] if s[1] <= 0]
+    # a context opens the card's device file and lists the process in
+    # nvidia-smi; libcuda mapped without them is reported beside
+    held = [s for s in idle if s[3]["device_fd"] or s[3]["smi"]]
+    libcuda = sorted({s[1] for s in idle if s[3]["libcuda"]})
+    preloaded_idle = sorted({s[1] for s in idle if s[2] == libs})
+    elastic_cold = [x["bump_to_first_step_s"]
+                    for x in elastic["cold"]["time_to_recover"]
+                    if x["world"] == 2]
+    warm_s = [float(x) for x in re.findall(
+        r"warm: world=2 cached in ([0-9.]+)s", res["launcher_logs"]["a"])]
+    out = {
+        "phase": "restage_planes", "config": "flagship, 4 layers",
+        "tokens": [FLAGSHIP_TRAIN["batch"], FLAGSHIP_TRAIN["seq"]],
+        "epochs": PLANES_EPOCHS, "batches_per_epoch": ELASTIC_BATCHES,
+        "ready_s": res["ready_s"], "end_s": res["end_s"],
+        "a_rc": res["a_rc"], "b_rc": res["b_rc"],
+        "job_status": res["job_status"],
+        "shadow": {"claim": res["warm_claim"], "seconds": warm_s,
+                   "ranks": [{"world": r["world"], "steps": r["steps"],
+                              "launches": r["launches"],
+                              "spawn_to_first_step_s": (
+                                  r["first_step_end_ts"][0] - r["spawn_ts"]
+                                  if r["first_step_end_ts"] else None)}
+                             for r in shadow],
+                   "logs": res["warm_logs"]},
+        "rung": {"plan": res["rung_before_join"],
+                 "seconds": [e.get("dur") for e in rungs if e.get("world")
+                             == 2],
+                 "flight_records": len(rung_plans)},
+        "pull": {"entries": sorted(b_rec.get("cache", {}).get("entries",
+                                                               {})),
+                 "bytes": b_rec.get("cache", {}).get("rx_bytes"),
+                 "seconds": [e.get("dur") for e in pulls],
+                 "pulled": [e.get("pulled") for e in pulls],
+                 "by_shell": b_rec.get("cache", {}).get("pulled_env") == "1",
+                 "nvcc_build_s": build_s},
+        "joiner": {"pid": b_rec.get("pid"), "cache_events":
+                   b_rec.get("cache_events"),
+                   "nvcc_builds": b_rec.get("nvcc_builds"),
+                   "cache_dir": b_rec.get("cache_dir")},
+        "grow": {"ranks": grow,
+                 "bump_to_first_step_s": max(
+                     (g["bump_to_first_step_s"] for g in grow), default=None),
+                 "elastic_cold_grow_s": elastic_cold},
+        "shells": {"spawned": res["shells"],
+                   "idle_samples": len(idle),
+                   "sampled_idle_with_libraries": preloaded_idle,
+                   "held_cuda_before_activation": held[:5],
+                   "libcuda_mapped_while_idle": libcuda,
+                   "activated_holding_device": sorted(
+                       p for p, h in res["shells_after"].items()
+                       if h["device_fd"]),
+                   "smi_pids_listed": len(res["smi_pids"]),
+                   "smi_listed_worker_pids": sorted(
+                       res["smi_pids"] & {r["pid"] for r in recs}),
+                   "sampler_errors": errors[:3]},
+        "launches": {k: sum(r["launches"][k] for r in grown)
+                     for k in kernels},
+        "launches_per_rank": [{"pid": r["pid"], "steps": r["steps"],
+                               "launches": r["launches"]} for r in grown],
+        "card": smi,
+    }
+    emit(out)
+    check(res["a_rc"] == 0 and res["b_rc"] == 0
+          and res["job_status"] == "COMPLETE",
+          "planes: launchers %s/%s, job %r"
+          % (res["a_rc"], res["b_rc"], res["job_status"]))
+    # A's shadow stage of world 2 exited 0 (the claim is done: only then)
+    check(res["warm_claim"].startswith("done:") and len(shadow) == 2
+          and all(r["world"] == 2 and r["steps"] == 2 for r in shadow),
+          "planes: shadow stage %r, ranks %s" % (res["warm_claim"],
+                                                 out["shadow"]["ranks"]))
+    # A's rung plan for world 2 was in the store before B joined
+    rung = res["rung_before_join"]
+    check(rung["world"] == 2 and rung["argument"] > 0 and rung["limit"] > 0
+          and rung_plans, "planes: rung plan %s" % rung)
+    # B's worker: a shell, its empty dir filled from A's before its first
+    # step, byte-identical, and no nvcc
+    a_libs = {k: v for k, v in res["a_cache_before_join"].items()
+              if k in libs}
+    check(sorted(a_libs) == libs, "planes: A's cache dir %s"
+          % sorted(res["a_cache_before_join"]))
+    check(bool(b_rec) and b_rec["pid"] in res["activated"]
+          and b_rec["cache"]["entries"] == a_libs
+          and b_rec["cache"]["pulled_env"] == "1"
+          and b_rec["cache"]["rx_bytes"] > 0 and pulls,
+          "planes: B's worker %s" % {k: b_rec.get(k) for k in (
+              "pid", "cache")})
+    check(b_rec.get("nvcc_builds") == 0
+          and b_rec["cache_events"]["miss"] == 0
+          and b_rec["cache_events"]["write"] == 0
+          and b_rec["cache_events"]["hit"] == len(SOURCES)
+          and b_rec["cache_dir"] == res["dirs"]["B"],
+          "planes: B built or copied a library: %s" % out["joiner"])
+    # no shell held a CUDA context before its activation, the check saw a
+    # shell waiting with the kernel libraries loaded, and it sees the
+    # device file a context opens in an activated shell that trains
+    check(not errors and not held and preloaded_idle
+          and out["shells"]["activated_holding_device"],
+          "planes: shells before activation: %s" % out["shells"])
+    # K1-K3 ran in every step of the grown stage
+    check(len(grown) == 2 and all(
+        r["steps"] > 0 and r["launches"] == {k: 2 * layers * r["steps"]
+                                             for k in kernels}
+        for r in grown), "planes: grown stage launches %s"
+        % out["launches_per_rank"])
     return out
 
 
@@ -3799,6 +4218,17 @@ def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
         "kill_in_epoch_1": bool(
             rec["epoch_t0"][0] < t_kill < ts[DISTILL_BATCHES - 1]),
         "batches_before_kill": int((ts < t_kill).sum()),
+        # what decides the batch A's wedge takes: the reader's
+        # least-loaded pick breaks ties by endpoint, and each predict
+        # thread keeps its teacher until that one leaves the pool
+        "teachers_by_endpoint": "".join(sorted("ab", key=ep.get)),
+        "wedge_after_student_start_s": t_wedge - t0,
+        "views_before_kill": [sorted(n for n in ("a", "b", "c")
+                                     if ep.get(n) in servers)
+                              for t, views in assigns_seen if t < t_kill
+                              for servers in views.values()],
+        "student_warnings": [ln.strip()[-200:] for ln in open(
+            log["student"], errors="replace") if "WARNING" in ln][-8:],
         "kill_to_next_batch_s": (served_after_kill[0] - t_kill
                                  if served_after_kill else None),
         "notice_to_mark_s": t_mark - t_notice,
@@ -5387,6 +5817,27 @@ def _pp_paths(pipe: dict, name: str) -> dict:
         for n in r["launches"]) for sched in ("gpipe", "1f1b")}
 
 
+def phase_alone(torch, name: str, repeat: int) -> int:
+    """``chip_smoke.py --phase NAME [N]``: phase ``distill`` or
+    ``restage_planes`` (without phase elastic's cold grow beside it) N
+    times after the device and build phases, each repeat's failed check
+    printed and counted; exit 1 if any failed. Prints no result line."""
+    dev = phase_device(torch)
+    build = phase_build()
+    run = {"distill": lambda: phase_distill(torch, dev["nvidia_smi"]),
+           "restage_planes": lambda: phase_restage_planes(
+               torch, dev["nvidia_smi"], {"cold": {"time_to_recover": []}},
+               build["seconds"])}[name]
+    failed = 0
+    for i in range(repeat):
+        try:
+            run()
+        except AssertionError as exc:
+            failed += 1
+            emit({"phase": name, "repeat": i, "failed": str(exc)})
+    return 1 if failed else 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "edl_tpu_torch")):
         sys.stderr.write(
@@ -5430,6 +5881,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--pp-launched"]:
         pp_launched(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
         return 0
+    if sys.argv[1:2] == ["--phase"]:
+        return phase_alone(torch, sys.argv[2],
+                           int(sys.argv[3]) if len(sys.argv) > 3 else 1)
     # each phase's wall seconds, emitted before the kernels line
     marks = [time.monotonic()]
     seconds = {}
@@ -5439,7 +5893,7 @@ def main() -> int:
         seconds[name] = marks[-1] - marks[-2]
 
     dev = phase_device(torch)
-    phase_build()
+    build = phase_build()
     done("device+build")
     kernels = phase_kernels(torch)
     bwd = phase_kernels_bwd(torch)
@@ -5453,6 +5907,9 @@ def main() -> int:
     done("train")
     elastic = phase_elastic(torch, dev["nvidia_smi"], train)
     done("elastic")
+    planes = phase_restage_planes(torch, dev["nvidia_smi"], elastic,
+                                  build["seconds"])
+    done("restage_planes")
     # phase trainee (its own store and launchers around a quadratic bowl
     # that barely uses the card, mostly waiting on process starts) runs
     # beside phase tiers; an exception of either is raised once both end
@@ -5494,6 +5951,8 @@ def main() -> int:
         "launches_by_path": {"serve": serve["flash_launches"],
                              "train": train["launches"]["flash_fwd"],
                              "elastic": elastic["launches"]["flash_fwd"],
+                             "restage_planes":
+                                 planes["launches"]["flash_fwd"],
                              "tiers": tiers["launches"]["flash_fwd"],
                              "distill_student":
                                  nlp["student_launches"]["flash_fwd"],
@@ -5531,6 +5990,7 @@ def main() -> int:
             "launches": train["launches"][name],
             "launches_by_path": {"train": train["launches"][name],
                                  "elastic": elastic["launches"][name],
+                                 "restage_planes": planes["launches"][name],
                                  "tiers": tiers["launches"][name],
                                  "distill_student":
                                      nlp["student_launches"][name],

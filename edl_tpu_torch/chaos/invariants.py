@@ -59,7 +59,7 @@ import json
 import os
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from edl_tpu_torch.chaos.plane import chaos_prefix
 from edl_tpu_torch.utils.log import get_logger
@@ -647,8 +647,21 @@ def goodput_accounted(
     gaps = []
     claimed = 0.0
     observed = 0.0
+    # a ledger that closed lost no second until it opened again: the AOT
+    # ladder's lane closes after each rung and with each ladder, so a
+    # hot-restaged process has its lane open only while a rung runs
+    closed: Dict[Tuple[str, int], set] = {}
+    for ev in flight_events:
+        if ev.get("event") == obs_goodput.TRANSITION_EVENT \
+                and not ev.get("state"):
+            lane = (str(ev.get("component", "proc")), int(ev.get("pid", 0)))
+            closed.setdefault(lane, set()).add(float(ev.get("ts", 0.0)))
     for (comp, pid), sp in obs_goodput.process_intervals(flight_events).items():
         life = sp[-1][1] - sp[0][0]
+        ends = closed.get((comp, pid), ())
+        for (_a0, b0, _s0), (a1, _b1, _s1) in zip(sp, sp[1:]):
+            if b0 in ends and a1 > b0:
+                life -= a1 - b0
         acc = sum(b - a for a, b, _s in sp)
         claimed += acc
         observed += life

@@ -302,18 +302,65 @@ def _state_dict(state) -> Dict[str, Any]:
     from torch.distributed.checkpoint.state_dict import get_state_dict
 
     model_sd, optim_sd = get_state_dict(state.apply_fn, state.opt_state.optimizer)
-    return {
+    sd = {
         "model": model_sd,
         "optim": optim_sd,
         "step": state.step,
         "count": torch.tensor(state.opt_state.count, dtype=torch.int64),
     }
+    chain = _chain_tensors(state)
+    if chain:
+        sd["chain"] = chain
+    return sd
+
+
+def _chain_tensors(state) -> Dict[str, torch.Tensor]:
+    """The live tensors of every state of an ``optim.chain`` that is not
+    its torch optimizer (DGC's error-feedback residual,
+    ``train/compression.TopKState``: one tensor per parameter, with its
+    shape), keyed ``<index>.<slot>.<parameter name>``. Keyed by the
+    parameter's name, DCP reshards each like its parameter. Empty for a
+    plain optimizer."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    states = getattr(state.opt_state, "states", None)
+    if not states:
+        return {}
+    module = state.apply_fn
+    if isinstance(module, DistributedDataParallel):
+        module = module.module
+    names = {id(p): n for n, p in module.named_parameters()}
+    out: Dict[str, torch.Tensor] = {}
+    for i, sub in enumerate(states):
+        params = getattr(sub, "params", None)
+        if sub.optimizer is not None or not params:
+            continue
+        for slot, values in sorted(vars(sub).items()):
+            if slot == "params" or not isinstance(values, list) \
+                    or len(values) != len(params) \
+                    or not all(torch.is_tensor(v) for v in values):
+                continue
+            for p, t in zip(params, values):
+                out["%d.%s.%s" % (i, slot, names[id(p)])] = t
+    return out
+
+
+def _has_chain(step_dir: str) -> bool:
+    """Whether the version in ``step_dir`` holds the chain's states; an
+    unreadable metadata file says yes, so that the load fails on it."""
+    import torch.distributed.checkpoint as dcp
+
+    try:
+        md = dcp.FileSystemReader(step_dir).read_metadata()
+    except Exception:  # noqa: BLE001 — a torn version fails in dcp.load
+        return True
+    return any(k.startswith("chain.") for k in md.state_dict_metadata)
 
 
 def _apply(state, sd: Dict[str, Any], count: int) -> None:
     """Load the DCP view ``sd`` (as :func:`_state_dict` built it, now
     holding restored values) into the ``TrainState``: the module's
-    parameters and the optimizer's state. The hyper-parameters stay this
+    parameters, the optimizer's state and the chain's other states. The hyper-parameters stay this
     world's (the factory set them from the adjust registry)."""
     from torch.distributed.checkpoint.state_dict import set_state_dict
 
@@ -326,6 +373,10 @@ def _apply(state, sd: Dict[str, Any], count: int) -> None:
         group.update(keep)
     with torch.no_grad():
         state.step.copy_(sd["step"])
+        live = _chain_tensors(state)
+        for key, value in sd.get("chain", {}).items():
+            if live[key] is not value:
+                live[key].copy_(value)
     state.opt_state.count = count
 
 
@@ -822,6 +873,10 @@ class CheckpointManager:
         step_dir = os.path.join(self.path, str(step))
         _metadata_file(step_dir)  # landed by the replica plane: put it back
         sd = _state_dict(template)
+        if "chain" in sd and not _has_chain(step_dir):
+            # a version written before the chain's states were saved: the
+            # chain keeps the template's (a fresh residual), as it did then
+            del sd["chain"]
         from torch.distributed.checkpoint.api import CheckpointException
 
         # a sharded template loads collectively: each rank reads the parts

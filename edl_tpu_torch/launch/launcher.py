@@ -42,11 +42,12 @@ Store layout under the job root (all via :class:`Registry`):
 
 This is the port's copy of ``edl_tpu/launch/launcher.py``: the same state
 machine, store keys, metric names and worker env, over the port's own
-store client and process manager, and the checkpoint replica holder
-(``checkpoint/replicate.ReplicaServer``) under ``EDL_CKPT_LOCAL_BASE``.
-The pod-scoped planes that need a part of the JAX package the port has
-not brought over yet raise ``NotImplementedError`` naming their ROADMAP
-item when a knob asks for them (:func:`refuse_deferred_planes`).
+store client and process manager, with the JAX launcher's pod-scoped
+planes: the checkpoint replica holder (``checkpoint/replicate.
+ReplicaServer``) under ``EDL_CKPT_LOCAL_BASE``, the compile-cache exchange
+(``train/aot.CacheExchange``) over a compile cache dir, the prewarmer
+(``launch/warm.py``, ``--prewarm``) and the standby worker shells
+(``launch/standby.py``, ``--standby``).
 
 The elastic contract is stop-resume, exactly the reference's
 (doc/edl_collective_design_doc.md): on any membership change every pod
@@ -159,46 +160,6 @@ def stalled_workers(
     return out
 
 
-def refuse_deferred_planes(
-    job_env: JobEnv,
-    prewarm: bool = False,
-    standby: bool = False,
-    compile_cache_named: bool = False,
-) -> None:
-    """Raise ``NotImplementedError`` when a knob asks for a pod-scoped
-    plane the port has not brought over (the JAX launcher imports each
-    one lazily from its package): standby shells (``--standby``,
-    ``EDL_STANDBY=1``; ROADMAP M23), compile-cache prewarming
-    (``--prewarm``, ``EDL_PREWARM=1``; M22), the compile-cache exchange
-    (a named compile cache dir with ``EDL_CACHE_EXCHANGE`` not 0; M22).
-    The job-scoped default cache dir names no cache: the port compiles
-    nothing at run time, so it starts no exchange."""
-    asked = []
-    env = os.environ
-    if env.get("EDL_STANDBY", "") not in ("0", "off") and (
-        standby or env.get("EDL_STANDBY") == "1"
-    ):
-        asked.append("standby worker shells (ROADMAP M23)")
-    if prewarm or env.get("EDL_PREWARM") == "1":
-        asked.append("compile-cache prewarming (ROADMAP M22)")
-    named = compile_cache_named or env.get("EDL_COMPILE_CACHE_DIR", "") not in (
-        "", "none",
-    )
-    if (
-        named
-        and job_env.compile_cache_dir
-        and env.get("EDL_CACHE_EXCHANGE", "1") != "0"
-    ):
-        asked.append(
-            "the compile-cache exchange (ROADMAP M22; EDL_CACHE_EXCHANGE=0 "
-            "or --compile_cache_dir none runs without it)"
-        )
-    if asked:
-        raise NotImplementedError(
-            "the port's launcher does not run %s yet" % "; ".join(asked)
-        )
-
-
 class ElasticLauncher:
     def __init__(
         self,
@@ -213,9 +174,7 @@ class ElasticLauncher:
         hot_restage: bool = False,
         fail_grace: Optional[float] = None,
         drain_budget: Optional[float] = None,
-        compile_cache_named: bool = False,
     ) -> None:
-        refuse_deferred_planes(job_env, prewarm, standby, compile_cache_named)
         self.job_env = job_env
         self.training_script = training_script
         self.training_args = list(training_args)
@@ -241,6 +200,8 @@ class ElasticLauncher:
         self.stall_floor = float(
             os.environ.get("EDL_STALL_FLOOR", 0) or max(5.0, 2.0 * ttl)
         )
+        self.prewarm = prewarm
+        self.warmer = None  # created on first adopted stage
         # the elastic window rides the worker env contract so the AOT
         # resize ladder (train/aot.py) can enumerate its neighbor worlds
         self.extra_worker_env.setdefault(
@@ -250,6 +211,7 @@ class ElasticLauncher:
         self.extra_worker_env.setdefault(
             "EDL_NPROC_PER_NODE", str(job_env.nproc_per_node)
         )
+        self.cache_exchange = None  # started in run() when the cache is armed
         # the pod-local checkpoint tier (EDL_CKPT_LOCAL_BASE): each pod's
         # workers read EDL_CKPT_LOCAL_DIR, and run() starts the replica
         # holder that keeps peers' versions under <base>/<pod>.replicas
@@ -269,6 +231,25 @@ class ElasticLauncher:
         # accumulate into a spurious abandonment
         self._hot_fallbacks = 0
         self._hot_fallback_ts = 0.0
+        self.standby_pool = None
+        from edl_tpu_torch.launch.standby import StandbyPool, standby_enabled
+
+        if standby_enabled(standby):
+            spawn_env = procs_mod.base_worker_env(self.extra_worker_env)
+            spawn_env.update(self.extra_worker_env)
+            # the shell resolves the kernel-library dir (ops/_build.py)
+            # before activation: it must be the stage's
+            spawn_env["EDL_COMPILE_CACHE_DIR"] = job_env.compile_cache_dir
+            # eager device init is only safe when the elastic window pins
+            # the world to one worker (see launch/standby.py docstring)
+            eager = (
+                job_env.max_nodes * job_env.nproc_per_node == 1
+                or os.environ.get("EDL_STANDBY_EAGER") == "1"
+            )
+            self.standby_pool = StandbyPool(
+                spawn_env, count=job_env.nproc_per_node, eager=eager
+            )
+
         self.client = connect_store(job_env.store_endpoint, timeout=max(10.0, ttl))
         # chaos plane (EDL_CHAOS env or the job's chaos/ keyspace): no-op
         # unless this job opted into fault injection
@@ -277,8 +258,8 @@ class ElasticLauncher:
         self.pod = self._make_pod()
         if self._ckpt_local_base:
             # the pod-local checkpoint tier: derived from the shared base
-            # here (the pod id exists only now) so every worker reads one
-            # env var
+            # here (the pod id exists only now) so every worker — spawned
+            # or standby-activated — reads one env var
             self.extra_worker_env.setdefault(
                 "EDL_CKPT_LOCAL_DIR",
                 os.path.join(self._ckpt_local_base, self.pod.pod_id),
@@ -1146,17 +1127,37 @@ class ElasticLauncher:
                     "EDL_COMPILE_CACHE_DIR": self.job_env.compile_cache_dir,
                     **self.extra_worker_env,
                 },
+                standby=self.standby_pool,
             )
 
     def _note_membership(self, published: Cluster) -> None:
-        """Per-generation upkeep of the pod-scoped planes: the checkpoint
-        replica holder GCs replicas superseded by the new membership (the
-        JAX launcher's compile-cache warmer, the other half, is M22)."""
+        """Per-generation upkeep of the pod-scoped planes: the warmer
+        learns the new world size, and the checkpoint replica holder
+        GCs replicas superseded by the new membership."""
+        self._note_stage_for_warmer(published)
         if self.ckpt_replicas is not None:
             try:
                 self.ckpt_replicas.note_membership(published.pod_ids())
             except Exception as exc:  # noqa: BLE001 — GC is best-effort
                 logger.warning("ckpt replica gc failed: %s", exc)
+
+    def _note_stage_for_warmer(self, published: Cluster) -> None:
+        """Kick proactive compile-cache warming for the OTHER world sizes
+        the elastic window allows (see launch/warm.py) — the grow
+        transition should land on a warm cache the first time."""
+        if self.warmer is None:
+            from edl_tpu_torch.launch.warm import make_warmer_if_enabled
+
+            self.warmer = make_warmer_if_enabled(
+                self.job_env,
+                self.pod.pod_id,
+                self.training_script,
+                self.training_args,
+                self.extra_worker_env,
+                self.prewarm,
+            ) or False
+        if self.warmer:
+            self.warmer.note_world(published.world_size)
 
     def _enforce_hot_deadline(self, published: Cluster) -> None:
         """After a hot handoff, every local worker must confirm it TOOK
@@ -1259,9 +1260,51 @@ class ElasticLauncher:
         # "store" registration would make every scraper that sums across
         # targets double-count this process.
 
-        # checkpoint replica holder (checkpoint/replicate.py): pod-scoped —
-        # replicas must survive worker restarts across stages, and the
-        # whole point of holding a peer's files is outliving that peer.
+        self._start_pod_planes()
+
+        try:
+            return self._loop()
+        finally:
+            for signum, handler in self._prev_handlers.items():
+                try:
+                    signal.signal(signum, handler)
+                except (ValueError, TypeError):
+                    pass
+            self._obs_gauges.release()
+            obs_http.release_health("launcher", self._health_fn)
+            self._kill_workers()
+            self._stop_pod_planes()
+            for reg in (self.rank_reg, self.resource_reg):
+                if reg is not None:
+                    reg.stop(delete=True)
+            self.client.close()
+
+    def _start_pod_planes(self) -> None:
+        """Start the pod-scoped planes that outlive worker restarts: the
+        compile-cache exchange and the checkpoint replica holder."""
+        # cache exchange (train/aot.py): publish this pod's compile-cache
+        # manifest + serve entry bytes, so a restaging or newly joined
+        # peer pulls the kernel libraries instead of building them.
+        # Pod-scoped (survives worker restarts across stages);
+        # best-effort.
+        if (
+            self.job_env.compile_cache_dir
+            and os.environ.get("EDL_CACHE_EXCHANGE", "1") != "0"
+        ):
+            try:
+                from edl_tpu_torch.train.aot import CacheExchange
+
+                self.cache_exchange = CacheExchange(
+                    self.job_env.compile_cache_dir, self.client,
+                    self.job_env.job_id, self.pod.pod_id,
+                ).start()
+            except Exception as exc:  # noqa: BLE001 — a perf lever, never a gate
+                logger.warning("cache exchange unavailable: %s", exc)
+
+        # checkpoint replica holder (checkpoint/replicate.py): pod-scoped
+        # like the cache exchange — replicas must survive worker restarts
+        # across stages, and the whole point of holding a peer's files is
+        # outliving that peer.
         # Leased peers registration so pushers find only live holders.
         if self._ckpt_local_base:
             from edl_tpu_torch.checkpoint.replicate import (
@@ -1277,7 +1320,7 @@ class ElasticLauncher:
                             self._ckpt_local_base,
                             self.pod.pod_id + ".replicas",
                         ),
-                        self.client, env.job_id, self.pod.pod_id,
+                        self.client, self.job_env.job_id, self.pod.pod_id,
                         ttl=self.ttl,
                     ).start()
                     self._ckpt_peers_reg = self.registry.register(
@@ -1288,25 +1331,19 @@ class ElasticLauncher:
                     # lever for PEERS' checkpoints; this pod still trains
                     logger.warning("ckpt replica holder unavailable: %s", exc)
 
-        try:
-            return self._loop()
-        finally:
-            for signum, handler in self._prev_handlers.items():
-                try:
-                    signal.signal(signum, handler)
-                except (ValueError, TypeError):
-                    pass
-            self._obs_gauges.release()
-            obs_http.release_health("launcher", self._health_fn)
-            self._kill_workers()
-            if self._ckpt_peers_reg is not None:
-                self._ckpt_peers_reg.stop(delete=True)
-            if self.ckpt_replicas is not None:
-                self.ckpt_replicas.stop()
-            for reg in (self.rank_reg, self.resource_reg):
-                if reg is not None:
-                    reg.stop(delete=True)
-            self.client.close()
+    def _stop_pod_planes(self) -> None:
+        """Stop every pod-scoped plane: the standby shells, the warmer,
+        the exchange (retracting its manifest) and the replica holder."""
+        if self.standby_pool is not None:
+            self.standby_pool.stop()
+        if self.warmer:
+            self.warmer.stop()
+        if self.cache_exchange is not None:
+            self.cache_exchange.stop()
+        if self._ckpt_peers_reg is not None:
+            self._ckpt_peers_reg.stop(delete=True)
+        if self.ckpt_replicas is not None:
+            self.ckpt_replicas.stop()
 
     def _loop(self) -> int:  # edl: event-loop(launcher supervision: lease renewal stalls behind anything slow here)
         while not self._stop.is_set():
@@ -1397,6 +1434,9 @@ class ElasticLauncher:
                     "pod %s: store unavailable mid-pass (%s); retrying "
                     "next tick", self.pod.pod_id[:8], exc,
                 )
+
+            # (the cache exchange rescans its dir on its own thread —
+            # sha256 over the cache dir must never ride this loop)
 
             # supervise local workers
             if self.procs and self._draining:
@@ -1590,10 +1630,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     parser.add_argument(
         "--compile_cache_dir",
         default=None,
-        help="compile cache dir passed to the workers (default: a "
-        "job-scoped tmp dir; 'none' disables). Naming one starts the "
-        "cache exchange, which the port does not run yet (ROADMAP M22) "
-        "unless EDL_CACHE_EXCHANGE=0",
+        help="the workers' kernel-library cache (ops/_build.py), shared "
+        "across resizes and served to joining pods by the cache exchange "
+        "(default: a job-scoped tmp dir; 'none' disables; "
+        "EDL_CACHE_EXCHANGE=0 keeps the dir without the exchange)",
     )
     parser.add_argument("--ttl", type=float, default=10.0, help="liveness lease TTL (s)")
     parser.add_argument(
@@ -1616,14 +1656,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "--prewarm",
         action="store_true",
         help="warm the compile cache for the other world sizes in the "
-        "elastic window (not ported yet: ROADMAP M22; refused). "
-        "EDL_PREWARM=1 also asks for it.",
+        "elastic window via background shadow stages (launch/warm.py; "
+        "only where their devices are free: workers on the CPU, "
+        "CUDA_VISIBLE_DEVICES='' in their env, or EDL_PREWARM_FORCE=1). "
+        "EDL_PREWARM=1 also enables.",
     )
     parser.add_argument(
         "--standby",
         action="store_true",
-        help="keep pre-imported hot-standby worker shells (not ported "
-        "yet: ROADMAP M23; refused). EDL_STANDBY=1 also asks for it.",
+        help="keep pre-imported hot-standby worker shells so restages "
+        "skip the python+torch cold start (launch/standby.py). "
+        "EDL_STANDBY=1 also enables; EDL_STANDBY=0 force-disables.",
     )
     parser.add_argument(
         "--hot-restage",
@@ -1745,7 +1788,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             hot_restage=args.hot_restage,
             fail_grace=args.fail_grace,
             drain_budget=args.drain_budget,
-            compile_cache_named=args.compile_cache_dir not in (None, "", "none"),
         )
     finally:
         if standby is not None:

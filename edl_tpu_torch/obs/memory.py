@@ -507,6 +507,26 @@ class MemoryPlane:
         )
         return plan
 
+    def harvest_rung(self, plan: MemoryPlan, world: int) -> Optional[MemoryPlan]:
+        """Publish an AOT ladder rung's plan (``train/aot.
+        make_neighbor_planner``: built from the live plan, no step run)
+        under ``mem/plan/{world}``, stamped with the live device limit,
+        with a ``mem_plan`` flight record (``rung=True``). Does NOT touch
+        the live-stage plan, its gauges or the allocator's peak."""
+        if plan is None:
+            return None
+        with self._lock:
+            plan.limit = self._limit
+        plan.world = world
+        publish_plan(self._client, self._job_id, plan)
+        obs_events.record(
+            "mem_plan", fsync=True, component="memory", stage=self.stage,
+            rank=self.rank, world=world, rung=True,
+            total_bytes=plan.total(), temp_bytes=plan.temp,
+            alias_bytes=plan.alias,
+        )
+        return plan
+
     # -- runtime sampling --------------------------------------------------
 
     def _utilization(self) -> float:

@@ -60,7 +60,7 @@ __all__ = [
 _env: Optional[WorkerEnv] = None
 _distributed_up = False  # torch.distributed joined by a previous init()
 _ckpt_group = None  # the stage's gloo group for background checkpoint writes
-_cache_noted = False
+_cache_pulled = False  # the compile-cache pull ran in this process
 
 # the default of jax.distributed.initialize: a dead peer must not wedge the
 # rendezvous for torch's 30 minutes; the launcher's deadline does the rest
@@ -111,18 +111,40 @@ def _record_boot_span(obs_trace) -> None:
     )
 
 
-def _note_compile_cache(env: WorkerEnv) -> None:
-    """The JAX package points XLA's persistent cache at
-    ``EDL_COMPILE_CACHE_DIR``; the port compiles nothing at run time (eager
-    PyTorch, kernels built once per source), so the directory has no use
-    until the ``torch.compile`` question of ROADMAP M22 is settled."""
-    global _cache_noted
-    if env.compile_cache_dir and not _cache_noted:
-        _cache_noted = True
-        logger.info(
-            "EDL_COMPILE_CACHE_DIR=%s is not used: the port has no compile "
-            "cache until ROADMAP M22", env.compile_cache_dir,
+def _pull_cache_entries(env: WorkerEnv) -> None:
+    """Bounded best-effort compile-cache pull at stage init, before the
+    first kernel load: diff peer manifests, fetch the kernel libraries any
+    pod already built or loaded (``train/aot.pull_missing`` into
+    ``EDL_COMPILE_CACHE_DIR``, the directory ``ops/_build`` resolves).
+    Once per process — a hot restage re-runs init() but the cache dir it
+    already pulled into is still warm; the standby shell sets
+    ``EDL_CACHE_PULLED`` after its own (earlier, overlapped) pull for the
+    same reason. Not in a warm-only shadow stage, not with
+    ``EDL_CACHE_EXCHANGE=0``. Never raises, never blocks past the
+    budget."""
+    global _cache_pulled
+    if (
+        _cache_pulled
+        or warm_only()
+        or os.environ.get("EDL_CACHE_PULLED") == "1"
+        or os.environ.get("EDL_CACHE_EXCHANGE", "1") == "0"
+        or not env.compile_cache_dir
+        or not env.store_endpoint
+        or not env.job_id
+    ):
+        return
+    _cache_pulled = True
+    try:
+        from edl_tpu_torch.train import aot as _aot
+
+        _aot.pull_missing(
+            env.compile_cache_dir,
+            endpoint=env.store_endpoint,
+            job_id=env.job_id,
+            own_pod=env.pod_id,
         )
+    except Exception as exc:  # noqa: BLE001
+        logger.warning("compile-cache pull failed: %s", exc)
 
 
 _obs_registered: Optional[tuple] = None
@@ -230,7 +252,7 @@ def init(env: Optional[WorkerEnv] = None, device="cuda") -> WorkerEnv:
             "restage", env.stage, rank=str(env.global_rank)
         )
         _record_boot_span(obs_trace)
-    _note_compile_cache(env)
+    _pull_cache_entries(env)
     _mount_obs(env)
     if _distributed_up or env.world_size <= 1 or not env.coordinator:
         return env

@@ -32,8 +32,10 @@ ledger (``compile`` until the first finished step, then ``train`` /
 ``data_wait``), the numerics probe (the step's bundle, the post-restore
 loss check), the profile plane (the first step's FLOPs, windowed MFU,
 store-driven ``torch.profiler`` windows) and the memory plane (the first
-step's plan, census, OOM forensics). What is not ported yet is named in
-one line when ``fit`` starts (``NOT_PORTED``).
+step's plan, census, OOM forensics). After a stage's first step the AOT
+ladder (``train/aot.py``) plans the neighbour worlds' memory plans on a
+background thread; a warm-only shadow stage (``EDL_WARM_ONLY=1``) leaves
+after its second step with exit 0.
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ _M_DRAINS = obs_metrics.counter(
 DataFn = Callable[[int], Iterable]  # epoch -> records or ready batches
 
 # the JAX loop's best-effort planes this port does not run yet
-NOT_PORTED = ("AOT ladder (M22)",)
+NOT_PORTED = ()
 
 
 class _RestageRequested(Exception):
@@ -449,11 +451,9 @@ class ElasticTrainer:
                     "continuing without graceful drain" % exc,
                     file=sys.stderr,
                 )
-        if env.is_rank0 and self._log and not self.restages:
-            print("elastic-trainer: not ported yet, not run: %s"
-                  % ", ".join(NOT_PORTED))
         state = None
         probe = capture = mem_plane = step_telemetry = None
+        ladder = None  # AOT resize ladder, armed after the first step
         try:
             # peek the checkpointed status FIRST: adjust callbacks are
             # contractually given (restored_status_or_None, world) so
@@ -645,6 +645,13 @@ class ElasticTrainer:
                                                     device=mesh.device)
                             if mem_plane is not None:
                                 mem_plane.harvest(state, world=env.world_size)
+                            # steady state reached: plan the neighbour
+                            # worlds on a low-priority thread
+                            # (train/aot.py) so the fit gate can judge a
+                            # resize before it lands
+                            if not warm and env.compile_cache_dir:
+                                ladder = self._start_ladder(env, state,
+                                                            mem_plane)
                             if self.restages and \
                                     "first_step_end_ts" not in self.restages[-1]:
                                 self.restages[-1]["first_step_end_ts"] = time.time()
@@ -671,6 +678,10 @@ class ElasticTrainer:
                             # device work it claims to
                             capture.on_step(sync=sync)
                         if warm and step_idx >= 2:
+                            # two steps: the kernels are loaded (and the
+                            # named cache filled) and the world's step ran
+                            if sync is not None:
+                                sync()
                             if env.is_rank0 and self._log:
                                 print(
                                     "warm-only stage (world=%d): two steps "
@@ -724,6 +735,8 @@ class ElasticTrainer:
         finally:
             # every plane closes with the stage: at the end, on a drain
             # (SystemExit) and before a hot restage
+            if ladder is not None:
+                ladder.close()
             if probe is not None:
                 probe.close()
             if capture is not None:
@@ -736,6 +749,35 @@ class ElasticTrainer:
                 health.close()
             if mngr is not None:
                 mngr.close()
+
+    def _start_ladder(self, env, state, mem_plane):
+        """Arm the AOT resize ladder for this stage (best-effort): its
+        rungs are the neighbour worlds' memory plans, published through
+        the memory plane."""
+        from edl_tpu_torch.train import aot
+
+        if not aot.aot_enabled() or mem_plane is None:
+            return None
+        try:
+            worlds = aot.neighbor_worlds(
+                env.world_size, env.nproc_per_node,
+                env.min_nodes, env.max_nodes,
+            )
+            if not worlds:
+                return None
+            plan_for = aot.make_neighbor_planner(
+                state, mem_plane.plan,
+                mesh_axes=self._mesh_axes, batch_axis=self._batch_axis,
+                fsdp=self._fsdp, on_planned=mem_plane.harvest_rung,
+            )
+            return aot.AotLadder(env, plan_for, worlds=worlds).start()
+        except Exception as exc:  # noqa: BLE001 — speculation must not gate training
+            print(
+                "elastic-trainer: aot ladder unavailable (%s); resizes "
+                "are fit-gated on the plans already published" % exc,
+                file=sys.stderr,
+            )
+            return None
 
     def evaluate(self, state: TrainState, data_fn: Callable[[], Iterable]):
         """Run one evaluation pass and return sample-weighted mean metrics

@@ -10,8 +10,8 @@ while the write is in flight), finalize on a thread of the manager's own
 budget (``finished=False`` when it runs out). The local tier mirrors the
 durable path without a store (``tests/test_checkpoint.py``'s case over
 the port), a hot restage tears its group down only after the in-flight
-save has finalized, and the port's launcher runs the replica holder while
-it still refuses the planes of M22 and M23.
+save has finalized, and the port's launcher runs the replica holder beside
+the restage planes (prewarming, standby shells, the cache exchange).
 
 Tolerances: exact equality everywhere (restored bytes, digests, paths).
 """
@@ -500,21 +500,43 @@ def test_hot_restage_waits_for_the_save_in_flight(tmp_path, clean_env,
     assert int(state.step) == 4 and sorted(os.listdir(ckpt)) == ["2", "4"]
 
 
-def test_refuse_deferred_planes_runs_the_holder(clean_env):
-    """The replica holder is the port's now; M22 and M23 still refuse."""
-    from edl_tpu_torch.cluster.job_env import JobEnv
-    from edl_tpu_torch.launch.launcher import refuse_deferred_planes
+def test_refuse_deferred_planes_runs_the_holder(clean_env, tmp_path):
+    """The port's launcher runs the replica holder beside every other
+    pod-scoped plane: with a local tier, prewarming, standby shells and a
+    named compile cache dir asked for, all of them start."""
+    from test_torch_replicate import ChildStore
 
-    clean_env.setenv("EDL_CKPT_LOCAL_BASE", "/tmp/local")
+    from edl_tpu_torch.cluster.job_env import JobEnv
+    from edl_tpu_torch.cluster.model import Cluster
+    from edl_tpu_torch.launch.launcher import ElasticLauncher
+    from edl_tpu_torch.obs import http as obs_http
+
+    clean_env.setenv("EDL_CKPT_LOCAL_BASE", str(tmp_path / "local"))
     clean_env.setenv("EDL_CKPT_REPLICAS", "1")
-    job = JobEnv(job_id="j", store_endpoint="127.0.0.1:1")
-    refuse_deferred_planes(job)
-    with pytest.raises(NotImplementedError, match="M22"):
-        refuse_deferred_planes(job, prewarm=True)
-    with pytest.raises(NotImplementedError, match="M23"):
-        refuse_deferred_planes(job, standby=True)
-    with pytest.raises(NotImplementedError, match="M22"):
-        refuse_deferred_planes(job, compile_cache_named=True)
+    clean_env.setenv("EDL_COMPILE_CACHE_DIR", str(tmp_path / "cache"))
+    clean_env.setenv("EDL_PREWARM_DELAY", "3600")  # started, not spawning
+    clean_env.setenv("CUDA_VISIBLE_DEVICES", "")  # CPU workers: free
+    srv = ChildStore()
+    launcher = None
+    try:
+        job = JobEnv(job_id="j", store_endpoint=srv.endpoint)
+        launcher = ElasticLauncher(job, sys.executable, prewarm=True,
+                                   standby=True, ttl=1.0)
+        launcher._note_stage_for_warmer(Cluster(pods=[], stage="s"))
+        launcher._start_pod_planes()
+        assert launcher.ckpt_replicas is not None
+        assert launcher.extra_worker_env["EDL_CKPT_LOCAL_DIR"] == \
+            os.path.join(str(tmp_path / "local"), launcher.pod.pod_id)
+        assert launcher.warmer
+        assert launcher.standby_pool._idle[0].poll() is None
+        assert launcher.cache_exchange.cache_dir == str(tmp_path / "cache")
+    finally:
+        if launcher is not None:
+            launcher._stop_pod_planes()
+            launcher._obs_gauges.release()
+            obs_http.release_health("launcher", launcher._health_fn)
+            launcher.client.close()
+        srv.stop()
 
 
 def test_torn_metadata_falls_back_to_the_previous_version(tmp_path, clean_env):

@@ -121,8 +121,8 @@ def test_launcher_fit_gate_refuses_growth_only_on_evidence(
         plans, want, monkeypatch):
     """The port launcher's memory gate caps the next generation only
     when a published plan is over its device's limit; a worker that
-    published its live world's fitting plan alone (the port has no AOT
-    ladder to publish the neighbours') does not block a grow."""
+    published its live world's fitting plan alone (before its AOT ladder
+    publishes the neighbours', or without one) does not block a grow."""
     import types
 
     from edl_tpu_torch.launch import launcher

@@ -484,12 +484,37 @@ def _raises_naming(fn, item):
 # each feature of slice 3b, and the ROADMAP item a deferred one's refusal
 # names; None: ported, it runs (the checkpoint tiers of item 4:
 # test_torch_ckpt_tiers.py, test_torch_replicate.py; the emergency save and
-# hot restage: test_torch_hot_restage.py; FSDP, item 5: test_torch_fsdp.py)
+# hot restage: test_torch_hot_restage.py; FSDP, item 5: test_torch_fsdp.py;
+# the AOT ladder and the cache pull, M22: test_torch_aot.py)
 _DEFERRED = {
     "async_save": None, "local_dir": None, "local_dir_env": None,
     "emergency_replicate": None, "trainer_fsdp": None,
     "mesh_fsdp": None, "shard_params_fsdp": None,
+    "aot_ladder": None, "cache_pull": None,
 }
+
+
+def _ladder_env():
+    from edl_tpu_torch.cluster.job_env import WorkerEnv
+
+    env = WorkerEnv()
+    env.world_size, env.min_nodes, env.max_nodes = 1, 1, 2
+    env.compile_cache_dir = "/cache"
+    return env
+
+
+def _lm_state(model):
+    from edl_tpu_torch.train import create_state
+
+    return create_state(model, 0, adamw(1e-3), device="cpu")
+
+
+def _plane():
+    from edl_tpu_torch.obs.memory import MemoryPlan, MemoryPlane
+
+    plane = MemoryPlane(device="cpu")
+    plane.plan = MemoryPlan(argument=1.0, world=1)
+    return plane
 
 
 @pytest.mark.parametrize("what", sorted(_DEFERRED))
@@ -509,6 +534,10 @@ def test_deferred_features_name_slice_3b(tmp_path, clean_env, what):
         "mesh_fsdp": lambda: make_mesh({"dp": 1, "fsdp": -1}, device="cpu"),
         "shard_params_fsdp": lambda: shard_params_fsdp(
             make_mesh({"dp": 1, "fsdp": -1}, device="cpu"), model),
+        "aot_ladder": lambda: ElasticTrainer(
+            model, adamw(1e-3), cross_entropy_loss, device="cpu"
+        )._start_ladder(_ladder_env(), _lm_state(model), _plane()),
+        "cache_pull": lambda: tcontext._pull_cache_entries(_ladder_env()),
     }
     if _DEFERRED[what] is not None:
         _raises_naming(calls[what], _DEFERRED[what])
@@ -529,6 +558,14 @@ def test_deferred_features_name_slice_3b(tmp_path, clean_env, what):
             type(p).__name__ == "DTensor" for p in model.parameters())
     elif what == "async_save":
         assert out._async and out.durable_path is None
+    elif what == "aot_ladder":
+        # world 1 in a 1:2 window: the ladder plans world 2
+        try:
+            assert out is not None and out._worlds == [2]
+        finally:
+            out.close()
+    elif what == "cache_pull":
+        assert out is None  # no store: nothing to pull, nothing raised
     else:
         assert out.path == path + "l" and out.durable_path == path
 

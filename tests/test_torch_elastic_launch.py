@@ -39,7 +39,7 @@ def test_port_trainer_resumes_across_launcher_churn(store, tmp_path):  # noqa: F
             "TEST_OUT_DIR": out_dir,
             "EDL_CKPT_PATH": str(tmp_path / "ckpt"),
             "EDL_DEVICES_PER_PROC": "1",
-            # the port compiles nothing: no cache to exchange
+            # a CPU worker loads no kernel library: no cache to exchange
             "EDL_COMPILE_CACHE_DIR": "none",
             "OMP_NUM_THREADS": "1",
             "TEST_EPOCH_PAUSE": "1.0",

@@ -10,7 +10,8 @@ spawn run in sessions of their own and die with their launcher
   same permanent store keys under ``/{job}/`` as the JAX launcher does
   for the same schedule (one pod, a second joins, the joiner is
   SIGKILLed), with pod ids and stage tokens masked.
-- The launcher refuses the planes it does not run yet.
+- The launcher starts the pod-scoped planes a knob asks for (standby
+  shells, the prewarmer, the compile-cache exchange, the replica holder).
 - ``terminate_local_workers`` ends a worker's whole process tree without
   ``psutil``, SIGKILLing what ignores SIGTERM.
 - The backend rule for ranks that outnumber their host's cards.
@@ -24,6 +25,8 @@ import sys
 import time
 
 import pytest
+
+from conftest import TOY_WORKER
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_hot_restage_worker.py")
@@ -47,7 +50,8 @@ class Rig:
         self.env.update({
             "PYTHONPATH": REPO + os.pathsep + self.env.get("PYTHONPATH", ""),
             "OMP_NUM_THREADS": "1",
-            "EDL_COMPILE_CACHE_DIR": "none",  # the port compiles nothing
+            # a CPU worker loads no kernel library: no cache to exchange
+            "EDL_COMPILE_CACHE_DIR": "none",
             "EDL_DEVICES_PER_PROC": "1",
             "EDL_CKPT_PATH": self.ckpt,
             "TEST_OUT_DIR": self.out,
@@ -192,49 +196,106 @@ def test_port_launcher_writes_the_jax_launchers_keys(tmp_path):
     assert "/j/events/<id>/published.<id>" in port_keys
 
 
-@pytest.mark.parametrize("knobs, item", [
-    ({"EDL_STANDBY": "1"}, "M23"),
-    ({"EDL_PREWARM": "1"}, "M22"),
-    ({"EDL_COMPILE_CACHE_DIR": "/tmp/cache"}, "M22"),
-    # the replica holder is ported (item 4): the launcher runs it
-    pytest.param({"EDL_CKPT_LOCAL_BASE": "/tmp/local"}, None,
-                 id="knobs3-item 4"),
-])
-def test_launcher_refuses_planes_not_ported(monkeypatch, knobs, item):
+@pytest.fixture()
+def plane_launcher(monkeypatch, tmp_path):
+    """``make()``: a port ``ElasticLauncher`` on a port store child (its own
+    session), built under the env the test set; every pod-scoped plane it
+    started is stopped and the store killed when the test ends."""
+    from test_torch_replicate import ChildStore
+
     from edl_tpu_torch.cluster.job_env import JobEnv
-    from edl_tpu_torch.launch.launcher import refuse_deferred_planes
+    from edl_tpu_torch.launch.launcher import ElasticLauncher
+    from edl_tpu_torch.obs import http as obs_http
 
     for key in list(os.environ):
         if key.startswith("EDL_"):
             monkeypatch.delenv(key)
+    monkeypatch.setenv("EDL_PREWARM_DELAY", "3600")  # started, not spawning
+    srv = ChildStore()
+    made = []
+
+    def make():
+        job = JobEnv(job_id="planes", store_endpoint=srv.endpoint)
+        launcher = ElasticLauncher(job, TOY_WORKER, ttl=1.0)
+        made.append(launcher)
+        return launcher
+
+    try:
+        yield make
+    finally:
+        for launcher in made:
+            launcher._stop_pod_planes()
+            launcher._obs_gauges.release()
+            obs_http.release_health("launcher", launcher._health_fn)
+            launcher.client.close()
+        srv.stop()
+
+
+# the ids name the ROADMAP items that refused these planes before the port
+# ran them
+@pytest.mark.parametrize("knobs, plane", [
+    pytest.param({"EDL_STANDBY": "1"}, "standby_pool", id="knobs0-M23"),
+    pytest.param({"EDL_PREWARM": "1", "CUDA_VISIBLE_DEVICES": ""}, "warmer",
+                 id="knobs1-M22"),
+    pytest.param({"EDL_COMPILE_CACHE_DIR": "NAMED"}, "cache_exchange",
+                 id="knobs2-M22"),
+    pytest.param({"EDL_CKPT_LOCAL_BASE": "LOCAL"}, "ckpt_replicas",
+                 id="knobs3-item 4"),
+])
+def test_launcher_refuses_planes_not_ported(monkeypatch, tmp_path,
+                                            plane_launcher, knobs, plane):
+    """Each pod-scoped plane a knob asks for starts in the port's
+    launcher: the standby shells (a live shell), the prewarmer (at the
+    first adopted stage), the exchange over a named cache dir and the
+    replica holder; the knob switched off, it does not."""
+    from edl_tpu_torch.cluster.model import Cluster
+
+    values = {"NAMED": str(tmp_path / "cache"), "LOCAL": str(tmp_path / "l")}
     for key, value in knobs.items():
-        monkeypatch.setenv(key, value)
-    job = JobEnv(job_id="j", store_endpoint="127.0.0.1:1")
-    if item is None:
-        refuse_deferred_planes(job)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        refuse_deferred_planes(job)
-    # the way out each message names: the knob switched off
+        monkeypatch.setenv(key, values.get(value, value))
+    stage = Cluster(pods=[], stage="s")
+    launcher = plane_launcher()
+    launcher._note_stage_for_warmer(stage)
+    launcher._start_pod_planes()
+    started = getattr(launcher, plane)
+    assert started
+    if plane == "standby_pool":
+        assert started._idle and started._idle[0].poll() is None
+    if plane == "cache_exchange":
+        assert started.cache_dir == values["NAMED"]
+    # the way out: the knob switched off
+    for key in knobs:
+        monkeypatch.delenv(key)
     monkeypatch.setenv("EDL_STANDBY", "0")
     monkeypatch.setenv("EDL_CACHE_EXCHANGE", "0")
     monkeypatch.setenv("EDL_CKPT_REPLICAS", "0")
-    monkeypatch.delenv("EDL_PREWARM", raising=False)
-    refuse_deferred_planes(JobEnv(job_id="j", store_endpoint="127.0.0.1:1"))
+    off = plane_launcher()
+    off._note_stage_for_warmer(stage)
+    off._start_pod_planes()
+    assert not getattr(off, plane)
 
 
-def test_launcher_runs_with_the_default_cache_dir(monkeypatch):
-    from edl_tpu_torch.cluster.job_env import JobEnv
-    from edl_tpu_torch.launch.launcher import refuse_deferred_planes
-
-    for key in list(os.environ):
-        if key.startswith("EDL_"):
-            monkeypatch.delenv(key)
-    job = JobEnv(job_id="j", store_endpoint="127.0.0.1:1")
-    assert job.compile_cache_dir  # the job-scoped default names no cache
-    refuse_deferred_planes(job)
-    with pytest.raises(NotImplementedError, match="M22"):
-        refuse_deferred_planes(job, compile_cache_named=True)
+def test_launcher_runs_with_the_default_cache_dir(monkeypatch,
+                                                  plane_launcher):
+    """The job-scoped default cache dir is a cache dir like a named one:
+    the launcher serves it through the exchange (the JAX launcher's rule);
+    ``EDL_CACHE_EXCHANGE=0`` keeps the dir without the exchange, and
+    ``none`` has no dir."""
+    launcher = plane_launcher()
+    assert launcher.job_env.compile_cache_dir  # the job-scoped default
+    launcher._start_pod_planes()
+    assert launcher.cache_exchange.cache_dir == \
+        launcher.job_env.compile_cache_dir
+    monkeypatch.setenv("EDL_CACHE_EXCHANGE", "0")
+    quiet = plane_launcher()
+    quiet._start_pod_planes()
+    assert quiet.cache_exchange is None
+    monkeypatch.delenv("EDL_CACHE_EXCHANGE")
+    monkeypatch.setenv("EDL_COMPILE_CACHE_DIR", "none")
+    bare = plane_launcher()
+    assert bare.job_env.compile_cache_dir == ""
+    bare._start_pod_planes()
+    assert bare.cache_exchange is None
 
 
 _TREE = r"""

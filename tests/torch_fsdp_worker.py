@@ -25,10 +25,14 @@ rank, applied first) and ``ops``, run in order by every rank:
   ``{"op": "restore", "dir": DIR}``: ``CheckpointManager`` (its local tier
   from ``EDL_CKPT_LOCAL_DIR`` when the env sets it); a save is waited for
   and, with a local tier, pushed to the peer holders;
+- ``{"op": "plan", "worlds": [w...], "fsdp": bool, "axes": AXES}``: the
+  AOT ladder's rung plans (``train/aot.make_neighbor_planner``, from this
+  stage's measured plan; ``axes`` default the mesh's) for each world;
 - ``{"op": "dump", "out": NPZ}``: rank 0 writes the gathered state
   (``model/<name>``, ``optim/<name>/<slot>``), every step's global loss
-  (``loss``), the numerics bundles (``bundle/<key>``), the restored step
-  and this rank's state bytes (``state_bytes``, per rank).
+  (``loss``), the numerics bundles (``bundle/<key>``), the restored step,
+  this rank's state bytes (``state_bytes``, per rank) and the last plan
+  op's rung arguments (``rung/<world>``).
 """
 
 import contextlib
@@ -77,6 +81,7 @@ def _refused(*args, **kwargs):
 mesh = make_mesh(cfg.get("axes") or {"dp": 1, "fsdp": -1}, device="cpu")
 state = None
 losses, bundles, restored, flops = [], [], -1, 0.0
+rungs = {}
 for op in cfg["ops"]:
     kind = op["op"]
     _dispatch.redistribute_local_tensor = \
@@ -133,6 +138,20 @@ for op in cfg["ops"]:
         with CheckpointManager(op["dir"]) as mngr:
             state, status = mngr.restore(state)
         restored = -1 if status is None else status.step
+    elif kind == "plan":
+        from edl_tpu_torch.train import aot
+
+        live = memory.harvest_plan(state, "cpu", world=WORLD)
+        planned = {}
+        plan_for = aot.make_neighbor_planner(
+            state, live,
+            mesh_axes=(op.get("axes") or cfg.get("axes")
+                       or {"dp": 1, "fsdp": -1}),
+            fsdp=op["fsdp"],
+            on_planned=lambda plan, w: planned.__setitem__(w, plan))
+        for w in op["worlds"]:
+            plan_for(w)
+        rungs = {w: plan.argument for w, plan in planned.items()}
     elif kind == "dump":
         opts = StateDictOptions(full_state_dict=True)
         model_sd, optim_sd = get_state_dict(
@@ -154,6 +173,8 @@ for op in cfg["ops"]:
             out["restored"] = np.asarray(restored)
             out["flops"] = np.asarray(flops)
             out["state_bytes"] = torch.cat(gathered).numpy()
+            for w, argument in rungs.items():
+                out["rung/%d" % w] = np.asarray(argument)
             out["sharded"] = np.asarray(any(
                 type(p).__name__ == "DTensor"
                 for p in state.apply_fn.parameters()))

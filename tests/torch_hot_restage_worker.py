@@ -18,11 +18,17 @@ every rank of the stage takes the whole global batch.
 
 It writes ``loss.<epoch>.<stage>.<rank>``, ``pid.<stage>.<rank>`` and, at
 the end, ``done.<stage>.<rank>`` (the final step) into ``TEST_OUT_DIR``,
-and its hot restages into ``restages.<pid>``.
+and its hot restages into ``restages.<pid>``. With ``TEST_RECORD_CACHE=1``
+it also writes ``cache.<stage>.<rank>`` when its data is first asked for
+(before its first step): the compile cache dir's entries and their
+sha256, ``EDL_CACHE_PULLED``, the bytes the exchange pulled into this
+process, its steps so far and any JAX module it loaded.
 """
 
+import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -48,8 +54,32 @@ def _write(name, text):
         fh.write(text)
 
 
+def _record_cache(env):
+    from edl_tpu_torch.train import aot
+
+    cache = os.environ.get("EDL_COMPILE_CACHE_DIR", "")
+    entries = {}
+    if cache and os.path.isdir(cache):
+        for name in sorted(os.listdir(cache)):
+            with open(os.path.join(cache, name), "rb") as fh:
+                entries[name] = hashlib.sha256(fh.read()).hexdigest()
+    _write("cache.%s.%d" % (env.stage, env.global_rank), json.dumps({
+        "pid": os.getpid(), "cache_dir": cache, "entries": entries,
+        "pulled_env": os.environ.get("EDL_CACHE_PULLED", ""),
+        "rx_bytes": aot._M_XCHG_BYTES.value(dir="rx"), "steps": STEPS[0],
+        "leaked": sorted(m for m in sys.modules if m.split(".")[0] in (
+            "jax", "jaxlib", "flax", "optax", "edl_tpu")),
+    }))
+
+
+_recorded = []
+
+
 def data_fn(epoch):
     env = context.current_env()
+    if os.environ.get("TEST_RECORD_CACHE") == "1" and not _recorded:
+        _recorded.append(epoch)
+        _record_cache(env)
     if epoch in HOLDS:
         drill.hold_at_epoch(OUT, epoch, SETTLE)
     base = STEPS[0]
