@@ -243,7 +243,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              DeepFM's parameters, the card against the CPU within 1e-6;
              (d) the DGC threshold of a [32000, 1024] tensor against
              numpy's percentile, within one fp32 ulp.
-17. restage_planes - (run after phase elastic) the fast-restage planes
+17. restage_planes - (run beside phase tiers, with phase trainee) the
+             fast-restage planes
              in one launch of phase elastic's flagship worker (4 layers)
              on the port's store and launchers, 2 epochs: pod A
              (``--prewarm`` with ``EDL_PREWARM_FORCE=1``, ``--standby``,
@@ -264,8 +265,54 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              stage launches 8/8/8 flash kernels (4 layers, GNS on). Reports
              the shadow stage's and the rung's seconds, the pull's entries,
              bytes and seconds beside phase build's nvcc seconds, and the
-             drain-token bump to the grown stage's first step beside phase
-             elastic's cold grow (not gated).
+             drain-token bump to the grown stage's first step, printed
+             beside phase elastic's cold grow once both end (not gated;
+             the two now run at once).
+
+18. data   - the elastic data plane (with phase autoscale, beside phase
+             elastic's two jobs): (a)
+             ``examples/elastic_text_lm.py`` of the port alone on the card
+             (TransformerLM vocab 256, d_model 64, 4 heads, 2 layers, d_ff
+             256, fp32: K1-K3 at head width 16 over 63 causal tokens),
+             2 epochs of a seeded corpus (4 files of 200 lines) with
+             ``--ckpt_dir``: once unbroken, once SIGKILLed at a seeded step
+             of epoch 1 and restarted; the resumed run's parameters equal
+             the unbroken run's bit for bit (else the largest difference
+             is printed and the phase fails), the data digests of each
+             epoch agree, and each run launches 2 of each kernel a step;
+             (b) the same example on the port's store and launcher, two
+             pods (``--nodes_range 1:2``), each worker logging every
+             dispatcher hand-out, acknowledged report, done and yielded
+             record: pod B's worker is SIGKILLed mid-file in epoch 0, its
+             launcher leaves, the job restages to one pod whose new
+             dispatcher recovers the registry snapshot: every record of
+             every epoch is acknowledged exactly once across the
+             incarnations and read at least once, records are read again
+             only in B's unacknowledged tail, B's task is re-dispatched at
+             its reported offset, ``job/status`` reads COMPLETE, and
+             ``python -m edl_tpu_torch.cluster.status`` shows the live
+             dispatcher. Reports the dispatcher's state before and after
+             and the re-dispatch latency.
+19. autoscale - (beside phase elastic's two jobs, with phase data) the
+             goodput autoscaler: phase elastic's flagship worker
+             (4 layers, ``--hot_restage``, two pods of ``j:1:2``) with a
+             live port ``Scaler`` (``poll_once`` on its own thread,
+             ``stats_override`` playing the JAX ``autoscale-churn``
+             trace) and a live port ``Monitor`` (the built-in rules,
+             re-paced as the JAX chaos rig re-paces them): poor noise
+             scale, target 1 and pod B held; rich, an autoscale grow to 2
+             at epoch 1; poor, an autoscale shrink to 1 at epoch 2, B
+             released by a ``cause=autoscale`` preemption notice and
+             drained (launcher exit 76); the job completes. Every decision
+             carries ``op_trace_id("scale", seq)``, as does the launcher's
+             reconcile; decision → drain-token bump → the new stage's
+             first step; the survivor keeps one process and finite losses;
+             every stage launches 8/8/8 kernels a step a rank; the
+             scaler's sweep ms; every alert with its rule, evidence and
+             time, and none fires outside a restage (from the end of the
+             epoch before it, whose boundary save and hold it follows, to
+             the new stage's first step, plus the rules' own hold) or
+             after COMPLETE.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -280,13 +327,16 @@ resnet's, ``python3 chip_smoke.py --fsdp-launched OUT_DIR FSDP1_DIR`` phase
 fsdp's, ``python3 chip_smoke.py --lm-launched OUT_DIR RANK PORT``
 phase lm_parallel's two-rank workers (they also run phase moe's (c),
 phase pipeline's (a) and phase ctr's (b)), ``python3 chip_smoke.py
---pp-launched OUT_DIR RANK PORT`` phase pipeline's four-rank workers, all
-started by the phases themselves. ``python3 chip_smoke.py --phase NAME
-[N]`` runs phase ``distill`` or ``restage_planes`` alone N times after
-the device and build phases, and prints no result line.
+--pp-launched OUT_DIR RANK PORT`` phase pipeline's four-rank workers,
+``python3 chip_smoke.py --data-example OUT_DIR -- ARGS`` and
+``--data-launched OUT_DIR -- ARGS`` phase data's workers, all started by
+the phases themselves. ``python3 chip_smoke.py --phase NAME [N]`` runs
+phase ``distill``, ``restage_planes``, ``data`` or ``autoscale`` alone N
+times after the device and build phases, and prints no result line.
 """
 
 import concurrent.futures
+import dataclasses
 import hashlib
 import json
 import math
@@ -347,13 +397,16 @@ KERNEL_CASES = (
     ((8, 4, 4, 1024, 1024, 32), False, "bfloat16"),    # ring, a full step
     ((2, 4, 1, 4096, 4096, 64), True, "bfloat16"),     # Ulysses, kv 1
     ((2, 8, 1, 256, 256, 64), True, "float32"),        # tp 2 step, kv 1
+    # phase data's path: the elastic_text_lm example (63 tokens, ragged)
+    ((8, 4, 4, 63, 63, 16), True, "float32"),
 )
 FLAGSHIP_CASE = 0
 STUDENT_CASE = 9  # distill_nlp's student: fp32, head width 16
+DATA_CASE = 17
 WIDTH_CASES = {"fp32-d12": 10, "bf16-d16": 11, "bf16-d12": 12, "fp32-d4": 13}
 # the backward pair runs on the training path: K1's cases but the served
 # buckets
-BWD_CASES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16)
+BWD_CASES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
 SOURCES = ("flash_fwd", "flash_bwd")
 SERVE_SEQ = 1024
 SERVE_ROWS = (1, 3)
@@ -497,15 +550,20 @@ NLP_BATCHES = 8
 
 
 _EMIT_LOCK = threading.Lock()
+_START = time.monotonic()
 
 
 def emit(obj) -> None:
-    """One JSON line, written whole (phases trainee and tiers run side by
-    side)."""
+    """One JSON line, written whole (phases run side by side); its time
+    since the script started goes to stderr, a timeline of the run."""
     line = json.dumps(obj) + "\n"
     with _EMIT_LOCK:
         sys.stdout.write(line)
         sys.stdout.flush()
+        sys.stderr.write("[chip_smoke %.1fs] %s\n" % (
+            time.monotonic() - _START,
+            obj.get("phase") or ",".join(list(obj)[:3])))
+        sys.stderr.flush()
 
 
 def check(cond: bool, what: str) -> None:
@@ -1805,6 +1863,11 @@ def launched_child(torch, out_dir: str) -> None:
         from edl_tpu_torch.checkpoint import replicate
 
         drill.write_loss(out_dir, epoch, metrics["loss"])
+        env = context.current_env()
+        rec.setdefault("epochs", []).append(
+            {"epoch": epoch, "stage": env.stage, "world": env.world_size,
+             "steps": steps[0], "launches": _launch_counts(),
+             "ts": time.time()})
         # the pod's replica lag as its replicator exports it (before this
         # epoch's save)
         rec["replica_lag_steps"].append(
@@ -2032,7 +2095,10 @@ def _elastic_job(work: str, hot: bool) -> dict:
     from edl_tpu_torch.chaos import drill
 
     job = "chip-smoke-" + ("hot" if hot else "cold")
-    extra = {"SMOKE_DRAIN": "1"} if hot else {"SMOKE_DIGEST": "1"}
+    # cold: the schedule's three stages take epochs 0-2; hot: epoch 3 too,
+    # for the drain
+    extra = ({"SMOKE_DRAIN": "1"} if hot else
+             {"SMOKE_DIGEST": "1", "SMOKE_EPOCHS": str(ELASTIC_DRAIN_EPOCH)})
     cp = _ControlPlane(work, job, hot, **extra)
     res = {"job": job, "store": cp.store_line}
     try:
@@ -2176,11 +2242,12 @@ def _check_planes(name: str, rep: dict, world2: bool) -> None:
               "%s: replica divergence at world 2: %s" % (name, div))
 
 
-def phase_elastic(torch, smi: str, train: dict) -> dict:
+def phase_elastic(torch, smi: str, train: dict, after_reference=None) -> dict:
     """The elastic training path on the port's own control plane: the
     reference run, the cold job, the hot job with its drain, and the
-    DDP check (see the module docstring). The work directory is removed
-    afterwards."""
+    DDP check (see the module docstring); ``after_reference()`` is called
+    once the reference has run alone (``main`` starts the phases that run
+    beside the jobs there). The work directory is removed afterwards."""
     import shutil
     import tempfile
 
@@ -2199,11 +2266,16 @@ def phase_elastic(torch, smi: str, train: dict) -> dict:
                                  % proc.returncode)
         with open(out) as fh:
             ref = json.load(fh)
-        cold = _elastic_job(os.path.join(work, "cold"), hot=False)
-        hot = _elastic_job(os.path.join(work, "hot"), hot=True)
+        if after_reference is not None:
+            after_reference()
+        # the one-rank NCCL check in this process, beside the jobs
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            ddp = pool.submit(_ddp_check, torch)
+            cold = _elastic_job(os.path.join(work, "cold"), hot=False)
+            hot = _elastic_job(os.path.join(work, "hot"), hot=True)
+            ddp = ddp.result()
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    ddp = _ddp_check(torch)
     layers = ELASTIC_TRAIN["num_layers"]
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -2380,9 +2452,9 @@ def phase_elastic(torch, smi: str, train: dict) -> dict:
     check(all(norm_ok), "cold restored parameter norms vs stamped: %s"
           % [(r["restored_param_norm"], r["stamped_param_norm"])
              for r in restorers])
-    check(sorted(c_loss) == list(range(ELASTIC_EPOCHS)),
+    check(sorted(c_loss) == list(range(ELASTIC_DRAIN_EPOCH)),
           "cold epochs %s" % sorted(c_loss))
-    check(len(cold_vs_ref) == ELASTIC_EPOCHS
+    check(len(cold_vs_ref) == ELASTIC_DRAIN_EPOCH
           and max(cold_vs_ref.values()) <= TOL_RESUME,
           "cold losses differ from the reference: %s" % cold_vs_ref)
     # (b)
@@ -2645,8 +2717,7 @@ def _dir_digests(path: str) -> dict:
     return out
 
 
-def phase_restage_planes(torch, smi: str, elastic: dict,
-                         build_s: float) -> dict:
+def phase_restage_planes(torch, smi: str, build_s: float) -> dict:
     """The fast-restage planes on the card (see the module docstring):
     the prewarmer's shadow stage, the AOT ladder's rung plan, the
     compile-cache exchange into a new host's empty dir and the standby
@@ -2694,9 +2765,6 @@ def phase_restage_planes(torch, smi: str, elastic: dict,
     held = [s for s in idle if s[3]["device_fd"] or s[3]["smi"]]
     libcuda = sorted({s[1] for s in idle if s[3]["libcuda"]})
     preloaded_idle = sorted({s[1] for s in idle if s[2] == libs})
-    elastic_cold = [x["bump_to_first_step_s"]
-                    for x in elastic["cold"]["time_to_recover"]
-                    if x["world"] == 2]
     warm_s = [float(x) for x in re.findall(
         r"warm: world=2 cached in ([0-9.]+)s", res["launcher_logs"]["a"])]
     out = {
@@ -2732,7 +2800,7 @@ def phase_restage_planes(torch, smi: str, elastic: dict,
         "grow": {"ranks": grow,
                  "bump_to_first_step_s": max(
                      (g["bump_to_first_step_s"] for g in grow), default=None),
-                 "elastic_cold_grow_s": elastic_cold},
+                 },
         "shells": {"spawned": res["shells"],
                    "idle_samples": len(idle),
                    "sampled_idle_with_libraries": preloaded_idle,
@@ -2795,6 +2863,1002 @@ def phase_restage_planes(torch, smi: str, elastic: dict,
                                              for k in kernels}
         for r in grown), "planes: grown stage launches %s"
         % out["launches_per_rank"])
+    return out
+
+
+DATA_FILES = 4  # the example's corpus: 4 files (ensure_corpus' names)
+DATA_LINES = 200
+DATA_EPOCHS = 2
+DATA_SEED = 17
+DATA_JOB = "chip-smoke-data"
+DATA_STEP_DELAY_S = 0.02  # (b): paces the workers so the kill lands mid-file
+DATA_KILL_AFTER = 40  # (b): records of B's task read before its worker dies
+DATA_WAIT_S = 240.0
+SCALE_JOB = "chip-smoke-autoscale"
+SCALE_EPOCHS = 3  # world 1; grow to 2 at epoch 1; shrink to 1 at epoch 2
+SCALE_INTERVAL_S = 0.5
+# the JAX autoscale-churn scenario's regimes (edl_tpu/chaos/scenario.py):
+# rich noise scale, every pod; poor, one pod
+SCALE_GNS_RICH = 32.0
+SCALE_GNS_POOR = 0.03
+MONITOR_INTERVAL_S = 0.5
+MONITOR_QUIET_S = 1.5  # evaluated past COMPLETE, as the JAX monitor-clean rig
+# the JAX chaos rig's re-pacing of the built-in rules for its time budgets
+# (edl_tpu/chaos/scenario.py ``_monitor_rules``): the rules are the
+# production ones, only their windows shrink
+MONITOR_PACING = {
+    "goodput-degraded": dict(window_s=1.5, for_s=0.75, value=0.05),
+    "dead-endpoint": dict(stale_s=4.0),
+    "heartbeat-stale": dict(window_s=5.0),
+    "straggler-ejections": dict(window_s=10.0),
+    "ckpt-restore-fallbacks": dict(window_s=10.0),
+    "ckpt-replica-stale": dict(for_s=4.0),
+    "telemetry-dropped-keys": dict(window_s=10.0),
+    "replication-lag": dict(for_s=2.0),
+    "repl-sync-degraded": dict(window_s=10.0),
+    "distill-queue-saturated": dict(for_s=2.0),
+    "serve-shed-rate": dict(window_s=10.0, for_s=2.0),
+    "breaker-open": dict(for_s=2.0),
+    "nan-detected": dict(window_s=10.0),
+    "loss-spike": dict(window_s=20.0),
+    "replica-divergence": dict(for_s=2.0),
+    "grad-stall": dict(for_s=4.0),
+    "autoscale-thrash": dict(window_s=10.0, for_s=2.0, value=1.0),
+    "oom-detected": dict(window_s=10.0),
+    "hbm-pressure": dict(for_s=1.0, resolve_s=2.0),
+    "donation-dropped": dict(window_s=10.0),
+}
+
+
+def _data_corpus(root: str) -> str:
+    """The phase's seeded corpus under the example's file names (its
+    ``ensure_corpus`` keeps files that exist): printable lines of 20-90
+    bytes."""
+    import numpy as np
+
+    data_dir = os.path.join(root, "corpus")
+    os.makedirs(data_dir)
+    rs = np.random.RandomState(DATA_SEED)
+    for i in range(DATA_FILES):
+        with open(os.path.join(data_dir, "part-%02d.txt" % i), "w") as fh:
+            for _ in range(DATA_LINES):
+                n = int(rs.randint(20, 90))
+                fh.write("".join(chr(c) for c in rs.randint(32, 127, n))
+                         + "\n")
+    return data_dir
+
+
+def data_child(torch, out_dir: str, argv: list, launched: bool) -> None:
+    """Phase data's worker: the port's ``examples/elastic_text_lm.py``
+    (``run`` of its parsed ``argv``), as ``chip_smoke.py --data-example
+    OUT_DIR -- ARGS`` alone or ``--data-launched OUT_DIR -- ARGS`` as a
+    launcher's worker. Each step rewrites ``progress.<pid>`` (steps and
+    K1-K3 launches so far, which a killed worker leaves). Launched,
+    every dispatcher hand-out, acknowledged report and done, and every
+    record the loader yields (with the epoch of its task) go to
+    ``data.<stage>.<rank>.<pid>.jsonl``, and each step sleeps
+    ``DATA_STEP_DELAY_S``. Writes ``data-start.<pid>.json`` first and
+    ``data-rec.<pid>.json`` at the end (steps, launches, losses, digests)
+    and, alone, ``params.<pid>.pt``."""
+    from edl_tpu_torch import train as train_pkg
+    from edl_tpu_torch.data import dispatcher as data_dispatcher
+    from edl_tpu_torch.data import loader as data_loader
+    from edl_tpu_torch.examples import elastic_text_lm
+    from edl_tpu_torch.train import context
+
+    pid = os.getpid()
+    env0 = context.current_env()
+    rec = {"pid": pid, "launcher_pid": os.getppid(), "stage": env0.stage,
+           "rank": env0.global_rank, "pod": env0.pod_id}
+    _write_json(os.path.join(out_dir, "data-start.%d.json" % pid), rec)
+    steps = [0]
+    make = train_pkg.make_train_step
+    progress = os.path.join(out_dir, "progress.%d" % pid)
+
+    def counting(*args, **kwargs):
+        inner = make(*args, **kwargs)
+
+        def step(state, batch):
+            out = inner(state, batch)
+            steps[0] += 1
+            with open(progress, "w") as fh:
+                json.dump({"steps": steps[0], "launches": _launch_counts()},
+                          fh)
+            if launched:
+                time.sleep(DATA_STEP_DELAY_S)
+            return out
+
+        return step
+
+    train_pkg.make_train_step = counting
+    if launched:
+        log = open(os.path.join(out_dir, "data.%s.%d.%d.jsonl" % (
+            env0.stage, env0.global_rank, pid)), "w", buffering=1)
+        client_cls = data_dispatcher.DispatcherClient
+        get_task, report, task_done = (client_cls.get_task, client_cls.report,
+                                       client_cls.task_done)
+        last = {}
+
+        def logged_get(self):
+            resp = get_task(self)
+            if "task" in resp:
+                t = resp["task"]
+                last["epoch"] = resp["epoch"]
+                log.write(json.dumps({"k": "task", "epoch": resp["epoch"],
+                                      "t": t["id"], "file": t["file_idx"],
+                                      "start": t["start_record"],
+                                      "ts": time.time()}) + "\n")
+            return resp
+
+        def logged_report(self, task_id, next_record):
+            acked = report(self, task_id, next_record)
+            if acked:
+                log.write(json.dumps({"k": "ack", "t": task_id,
+                                      "next": next_record,
+                                      "ts": time.time()}) + "\n")
+            return acked
+
+        def logged_done(self, task_id):
+            acked = task_done(self, task_id)
+            if acked:
+                log.write(json.dumps({"k": "done", "t": task_id,
+                                      "ts": time.time()}) + "\n")
+            return acked
+
+        client_cls.get_task = logged_get
+        client_cls.report = logged_report
+        client_cls.task_done = logged_done
+        epoch_fn = data_loader.ElasticDataLoader.epoch
+
+        def logged_epoch(self):
+            for file_idx, rec_idx, record in epoch_fn(self):
+                log.write(json.dumps({"k": "yield", "epoch": last["epoch"],
+                                      "file": file_idx, "rec": rec_idx,
+                                      "ts": time.time()}) + "\n")
+                yield file_idx, rec_idx, record
+
+        data_loader.ElasticDataLoader.epoch = logged_epoch
+    _zero_counts()  # this worker's part of the data path starts here
+    res = elastic_text_lm.run(elastic_text_lm.parse_args(argv))
+    torch.cuda.synchronize()
+    rec.update({"steps": steps[0], "launches": _launch_counts(),
+                "losses": {str(e): v for e, v in res["losses"].items()},
+                "batches": {str(e): v for e, v in res["batches"].items()},
+                "epoch_digests": {str(e): v for e, v in
+                                  res["epoch_digests"].items()},
+                "digest": res["digest"], "start_epoch": res["start_epoch"],
+                "end_ts": time.time()})
+    if not launched:
+        torch.save({n: p.detach().cpu() for n, p in
+                    res["state"].apply_fn.named_parameters()},
+                   os.path.join(out_dir, "params.%d.pt" % pid))
+    _write_json(os.path.join(out_dir, "data-rec.%d.json" % pid), rec)
+
+
+def _example(out_dir: str, args: list, launched=False) -> list:
+    """Phase data's worker command (a launcher prefixes the interpreter
+    to its script)."""
+    return [os.path.abspath(__file__),
+            "--data-launched" if launched else "--data-example", out_dir,
+            "--", *args]
+
+
+def _json_files(path: str, prefix: str) -> dict:
+    out = {}
+    for name in sorted(os.listdir(path)):
+        if name.startswith(prefix) and name.endswith(".json"):
+            with open(os.path.join(path, name)) as fh:
+                out[int(name.split(".")[1])] = json.load(fh)
+    return out
+
+
+def _progress(out_dir: str, pid: int) -> dict:
+    """A data worker's last ``progress.<pid>`` (steps 0 before its first)."""
+    try:
+        with open(os.path.join(out_dir, "progress.%d" % pid)) as fh:
+            return json.load(fh)
+    except (OSError, ValueError):
+        return {"steps": 0, "launches": None}
+
+
+def _data_resume(work: str, corpus: str) -> dict:
+    """Phase data (a): the example alone, 2 epochs with ``--ckpt_dir``,
+    once unbroken and once SIGKILLed at a seeded step of epoch 1 and
+    restarted (the first two side by side)."""
+    import numpy as np
+
+    env = elastic_env("data")
+    env["EDL_JOB_ID"] = DATA_JOB + "-resume"
+    runs = {}
+    procs = {}
+    for name in ("unbroken", "broken"):
+        out = os.path.join(work, name)
+        os.makedirs(out)
+        args = ["--data_dir", corpus, "--epochs", str(DATA_EPOCHS),
+                "--ckpt_dir", os.path.join(work, name + "-ckpt"),
+                "--device", "cuda"]
+        log = open(os.path.join(work, name + ".log"), "wb")
+        procs[name] = (subprocess.Popen([sys.executable, *_example(out, args)],
+                                        env=env, cwd=HERE,
+                                        stdout=log, stderr=subprocess.STDOUT,
+                                        start_new_session=True), out, args, log)
+    per_epoch = DATA_FILES * DATA_LINES // 8  # batches at --batch 8
+    kill_at = per_epoch + 1 + int(np.random.RandomState(DATA_SEED).randint(
+        per_epoch - 2))
+    try:
+        proc, out, args, log = procs["broken"]
+        deadline = time.monotonic() + DATA_WAIT_S
+        while True:
+            starts = _json_files(out, "data-start.")
+            if starts and _progress(out, next(iter(starts)))["steps"] >= kill_at:
+                break
+            if proc.poll() is not None:
+                log.flush()
+                sys.stderr.write(_tail(log.name, 40))
+            check(proc.poll() is None and time.monotonic() < deadline,
+                  "data (a): the run to kill exited %s before step %d"
+                  % (proc.poll(), kill_at))
+            time.sleep(0.002)
+        os.kill(proc.pid, 9)
+        proc.wait(timeout=60)
+        killed_pid = next(iter(starts))
+        runs["killed_at"] = _progress(out, killed_pid)["steps"]
+        runs["kill_planned"] = kill_at
+        log.close()
+        relog = open(os.path.join(work, "resumed.log"), "wb")
+        resumed = subprocess.Popen([sys.executable, *_example(out, args)],
+                                   env=env, cwd=HERE,
+                                   stdout=relog, stderr=subprocess.STDOUT,
+                                   start_new_session=True)
+        procs["resumed"] = (resumed, out, args, relog)
+        for name in ("unbroken", "resumed"):
+            proc, _out, _args, log = procs[name]
+            rc = proc.wait(timeout=DATA_WAIT_S)
+            log.close()
+            if rc != 0:
+                sys.stderr.write(_tail(log.name, 40))
+            check(rc == 0, "data (a): the %s run exited %d" % (name, rc))
+    finally:
+        for proc, _out, _args, _log in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait(timeout=30)
+    for name in ("unbroken", "broken"):
+        out = procs[name][1]
+        runs[name] = {"records": _json_files(out, "data-rec."),
+                      "starts": _json_files(out, "data-start."), "out": out}
+    with open(os.path.join(work, "resumed.log")) as fh:
+        runs["resumed_log"] = fh.read()
+    with open(os.path.join(work, "broken.log")) as fh:
+        runs["killed_log"] = fh.read()
+    with open(os.path.join(work, "unbroken.log")) as fh:
+        runs["unbroken_log"] = fh.read()
+    runs["killed_pid"] = killed_pid
+    runs["per_epoch"] = per_epoch
+    return runs
+
+
+def _read_jsonl(path: str) -> list:
+    rows = []
+    with open(path) as fh:
+        for line in fh:
+            try:
+                rows.append(json.loads(line))
+            except ValueError:
+                pass  # the line a kill cut short
+    return rows
+
+
+def _data_churn(work: str, corpus: str) -> dict:
+    """Phase data (b): the example's data flow on the port's store and
+    launcher, two pods; pod B's worker SIGKILLed mid-file in epoch 0."""
+    from edl_tpu_torch.cluster import status as cluster_status
+    from edl_tpu_torch.data import DispatcherClient, discover_dispatcher
+    from edl_tpu_torch.discovery.registry import Registry
+    from edl_tpu_torch.store.client import StoreClient
+
+    # the dead worker's launcher holds 10 s before it leaves: the
+    # survivor's last acks reach the first dispatcher meanwhile
+    cp = _ControlPlane(work, DATA_JOB, False, EDL_FAIL_GRACE="10")
+    res = {"store": cp.store_line}
+    args = ["--data_dir", corpus, "--epochs", str(DATA_EPOCHS),
+            "--report_every", "1", "--device", "cuda"]
+    client = StoreClient(cp.endpoint, timeout=10.0)
+    registry = Registry(client, DATA_JOB)
+
+    def dispatcher_state():
+        endpoint = discover_dispatcher(registry, timeout=60.0)
+        dc = DispatcherClient(endpoint, "chip-smoke", timeout=10.0)
+        try:
+            return endpoint, dc.state()
+        finally:
+            dc.close()
+
+    try:
+        pods = [cp.pod(script=_example(cp.out, args, launched=True))
+                for _ in range(2)]
+
+        def b_mid_file():
+            # pod B: the pod whose worker does not host the dispatcher
+            # (rank 1; the pods race for rank slot 0)
+            for start in _json_files(cp.out, "data-start.").values():
+                if start["rank"] != 1:
+                    continue
+                path = os.path.join(cp.out, "data.%s.%d.%d.jsonl" % (
+                    start["stage"], start["rank"], start["pid"]))
+                if not os.path.exists(path):
+                    return None
+                rows = _read_jsonl(path)
+                tasks = [r for r in rows if r["k"] == "task"]
+                if not tasks:
+                    return None
+                since = [r for r in rows[rows.index(tasks[-1]):]
+                         if r["k"] == "yield"]
+                if len(since) >= DATA_KILL_AFTER and tasks[-1]["epoch"] == 0:
+                    return start
+            return None
+
+        _wait(lambda: b_mid_file() is not None, "data (b): B mid-file", pods)
+        victim = b_mid_file()
+        (b,) = [p for p in pods if p.pid == victim["launcher_pid"]]
+        (a,) = [p for p in pods if p is not b]
+        res["a_pid"], res["b_pid"] = a.pid, b.pid
+        res["before"] = dispatcher_state()
+        # edl-status (``python -m edl_tpu_torch.cluster.status``'s main, in
+        # this process: a new interpreter would outlast B's task) against
+        # the live job
+        res["status_rc"], out = _in_process(lambda: cluster_status.main([
+            "--store", cp.endpoint, "--job_id", DATA_JOB, "--dispatcher",
+            res["before"][0], "--json"]))
+        res["status"] = json.loads(out) if res["status_rc"] == 0 else out[
+            -2000:]
+        os.kill(victim["pid"], 9)  # a dead worker, its launcher alive
+        res["kill_ts"] = time.time()
+        res["victim"] = victim
+        res["b_rc"] = b.wait(timeout=DATA_WAIT_S)
+
+        def redispatched():
+            for start in _json_files(cp.out, "data-start.").values():
+                if start["stage"] == victim["stage"]:
+                    continue
+                path = os.path.join(cp.out, "data.%s.%d.%d.jsonl" % (
+                    start["stage"], start["rank"], start["pid"]))
+                if os.path.exists(path) and any(
+                        r["k"] == "task" for r in _read_jsonl(path)):
+                    return True
+            return False
+
+        _wait(redispatched, "data (b): a task in the new stage", [a])
+        res["after"] = dispatcher_state()
+        dc = DispatcherClient(res["after"][0], "chip-smoke", timeout=10.0)
+        try:
+            rpc = []
+            for _ in range(20):
+                t = time.perf_counter()
+                dc.state()
+                rpc.append((time.perf_counter() - t) * 1e3)
+            res["rpc_ms"] = sorted(rpc)
+        finally:
+            dc.close()
+        res["a_rc"] = a.wait(timeout=DATA_WAIT_S)
+        items = cp.items()
+        res["job_status"] = (items.get("/%s/job/status" % DATA_JOB)
+                             or (b"",))[0].decode()
+        res["stages"] = sorted({k.split("/")[3] for k in items
+                                if k.startswith("/%s/events/" % DATA_JOB)})
+        res["starts"] = _json_files(cp.out, "data-start.")
+        res["records"] = _json_files(cp.out, "data-rec.")
+        res["progress"] = {pid: _progress(cp.out, pid) for pid in res["starts"]}
+        res["logs"] = {}
+        for name in sorted(os.listdir(cp.out)):
+            if name.startswith("data.") and name.endswith(".jsonl"):
+                res["logs"][int(name.split(".")[3])] = _read_jsonl(
+                    os.path.join(cp.out, name))
+        res["launcher_logs"] = [open(p.log).read() for p in cp.procs[1:]]
+    except BaseException:
+        for name in sorted(os.listdir(cp.logs)):
+            sys.stderr.write("--- %s\n%s" % (
+                name, _tail(os.path.join(cp.logs, name))))
+        raise
+    finally:
+        client.close()
+        cp.close()
+    return res
+
+
+def _file_lines(corpus: str) -> dict:
+    out = {}
+    for i in range(DATA_FILES):
+        with open(os.path.join(corpus, "part-%02d.txt" % i), "rb") as fh:
+            out[i] = sum(1 for _ in fh)
+    return out
+
+
+def _acked_ranges(logs: dict, lines: dict) -> dict:
+    """``{epoch: Counter((file, record))}`` of what each incarnation
+    acknowledged: a report to ``next`` covers the records from the task's
+    hand-out (or its previous report) to ``next``, a done the rest of the
+    file."""
+    import collections
+
+    acked = collections.defaultdict(collections.Counter)
+    for rows in logs.values():
+        tasks = {}
+        for r in rows:
+            if r["k"] == "task":
+                tasks[r["t"]] = [r["epoch"], r["file"], r["start"]]
+            elif r["k"] in ("ack", "done") and r["t"] in tasks:
+                epoch, f, lo = tasks[r["t"]]
+                hi = r["next"] if r["k"] == "ack" else lines[f]
+                for i in range(lo, hi):
+                    acked[epoch][(f, i)] += 1
+                tasks[r["t"]][2] = max(lo, hi)
+    return acked
+
+
+def phase_data(torch, smi: str) -> dict:
+    """The elastic data plane on the card (see the module docstring):
+    (a) exact resume of the example alone, (b) exactly once under churn
+    on the port's control plane, side by side. The work directory is
+    removed afterwards."""
+    import collections
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="edl-data-")
+    t0 = time.monotonic()
+    try:
+        corpus = _data_corpus(work)
+        lines = _file_lines(corpus)
+        os.makedirs(os.path.join(work, "resume"))
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            resume_f = pool.submit(_data_resume, os.path.join(work, "resume"),
+                                   corpus)
+            churn = _data_churn(os.path.join(work, "churn"), corpus)
+            resume = resume_f.result()
+        params = {}
+        for name in ("unbroken", "broken"):
+            (pid, _rec), = [(p, r) for p, r in resume[name]["records"].items()]
+            params[name] = torch.load(os.path.join(
+                resume[name]["out"], "params.%d.pt" % pid))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.monotonic() - t0
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    layers = 2  # the example's model
+
+    # (a)
+    (u_rec,) = resume["unbroken"]["records"].values()
+    (r_rec,) = resume["broken"]["records"].values()
+    diffs = {n: float((params["broken"][n] - p).abs().max())
+             for n, p in params["unbroken"].items()}
+    bit_equal = all(torch.equal(params["broken"][n], p)
+                    for n, p in params["unbroken"].items())
+    killed_epoch0 = re.findall(r"rank 0 epoch 0: (\d+) batches, loss (\S+)",
+                               resume["killed_log"])
+    resumed_line = re.findall(r"rank 0 resumed from step (\d+) epoch (\d+)",
+                              resume["resumed_log"])
+    digests = {n: re.findall(r"rank 0 data digest (\w+)", resume[n + "_log"])
+               for n in ("unbroken", "resumed")}
+    out_a = {
+        "example": "edl_tpu_torch/examples/elastic_text_lm.py",
+        "model": "TransformerLM(vocab 256, d_model 64, 4 heads, 2 layers, "
+                 "d_ff 256, fp32), adamw(1e-3), batch 8, seq 64",
+        "corpus": [DATA_FILES, DATA_LINES], "epochs": DATA_EPOCHS,
+        "steps_per_epoch": resume["per_epoch"],
+        "kill_planned_step": resume["kill_planned"],
+        "killed_at_step": resume["killed_at"],
+        "resumed_from": resumed_line,
+        "unbroken": {"steps": u_rec["steps"], "losses": u_rec["losses"],
+                     "epoch_digests": u_rec["epoch_digests"],
+                     "digest": digests["unbroken"],
+                     "launches": u_rec["launches"]},
+        "resumed": {"steps": r_rec["steps"], "losses": r_rec["losses"],
+                    "start_epoch": r_rec["start_epoch"],
+                    "epoch_digests": r_rec["epoch_digests"],
+                    "digest": digests["resumed"],
+                    "launches": r_rec["launches"]},
+        "killed_epoch0": killed_epoch0,
+        "params_bit_equal": bit_equal,
+        "params_max_abs_diff": max(diffs.values()),
+    }
+    # (b)
+    logs = churn["logs"]
+    starts = churn["starts"]
+    victim = churn["victim"]
+    acked = _acked_ranges(logs, lines)
+    yields = collections.defaultdict(collections.Counter)
+    for rows in logs.values():
+        for r in rows:
+            if r["k"] == "yield":
+                yields[r["epoch"]][(r["file"], r["rec"])] += 1
+    want = {(f, i) for f in lines for i in range(lines[f])}
+    coverage = {}
+    for epoch in range(DATA_EPOCHS):
+        coverage[epoch] = {
+            "acked_missing": len(want - set(acked[epoch])),
+            "acked_twice": sum(1 for c in acked[epoch].values() if c > 1),
+            "acked_unknown": len(set(acked[epoch]) - want),
+            "read_missing": len(want - set(yields[epoch])),
+            "read_again": sum(c - 1 for c in yields[epoch].values())}
+    v_rows = logs[victim["pid"]]
+    v_tasks = [r for r in v_rows if r["k"] == "task"]
+    v_task = v_tasks[-1]
+    v_acks = [r for r in v_rows if r["k"] == "ack" and r["t"] == v_task["t"]]
+    v_offset = v_acks[-1]["next"] if v_acks else v_task["start"]
+    v_read = [r for r in v_rows if r["k"] == "yield"
+              and r["file"] == v_task["file"]]
+    later = sorted(
+        (r for pid, rows in logs.items() if pid != victim["pid"]
+         for r in rows if r["k"] == "task" and r["t"] == v_task["t"]
+         and r["ts"] > churn["kill_ts"]), key=lambda r: r["ts"])
+    redispatch = later[0] if later else None
+    workers = []
+    for pid, start in sorted(starts.items()):
+        prog = churn["progress"][pid]  # a killed worker's last step too
+        workers.append({"pid": pid, "stage": start["stage"][:8],
+                        "rank": start["rank"], "pod_launcher": (
+                            "A" if start["launcher_pid"] == churn["a_pid"]
+                            else "B"),
+                        "steps": prog["steps"], "launches": prog["launches"],
+                        "finished": pid in churn["records"],
+                        "killed_by_phase": pid == victim["pid"]})
+    launches_b = {k: sum(w["launches"][k] for w in workers if w["launches"])
+                  for k in kernels}
+    out_b = {
+        "job": DATA_JOB, "pods": 2, "nodes_range": "1:2",
+        "corpus": [DATA_FILES, DATA_LINES], "epochs": DATA_EPOCHS,
+        "step_delay_s": DATA_STEP_DELAY_S,
+        "victim": {"pid": victim["pid"], "stage": victim["stage"][:8],
+                   "rank": victim["rank"], "task": v_task["t"],
+                   "file": v_task["file"], "reported_offset": v_offset,
+                   "read_in_task": len(v_read)},
+        "redispatch": redispatch and {
+            "start_record": redispatch["start"],
+            "latency_s": redispatch["ts"] - churn["kill_ts"]},
+        "dispatcher_rpc_ms": {"median": churn["rpc_ms"][10],
+                              "max": churn["rpc_ms"][-1]},
+        "dispatcher_before": churn["before"][1],
+        "dispatcher_after": churn["after"][1],
+        "status_dispatcher": (churn["status"].get("dispatcher")
+                              if isinstance(churn["status"], dict)
+                              else churn["status"]),
+        "coverage": coverage,
+        "stages": len({s["stage"] for s in starts.values()}),
+        "b_launcher_rc": churn["b_rc"], "a_launcher_rc": churn["a_rc"],
+        "job_status": churn["job_status"],
+        "workers": workers,
+    }
+    out = {"phase": "data", "seconds": seconds, "resume": out_a,
+           "churn": out_b,
+           "launches": {"data_resume": {
+               k: u_rec["launches"][k] + r_rec["launches"][k]
+               for k in kernels}, "data_churn": launches_b},
+           "card": smi}
+    emit(out)
+    # (a): the resumed run is the unbroken one, bit for bit
+    check(resume["per_epoch"] < resume["killed_at"] < 2 * resume["per_epoch"]
+          and resume["killed_pid"] not in resume["broken"]["records"],
+          "data (a): the kill at step %d is not in epoch 1"
+          % resume["killed_at"])
+    check(resumed_line == [(str(resume["per_epoch"]), "1")]
+          and r_rec["start_epoch"] == 1,
+          "data (a): resumed %s from epoch %s" % (resumed_line,
+                                                 r_rec["start_epoch"]))
+    check(bit_equal, "data (a): the resumed parameters differ from the "
+          "unbroken run's: max |diff| %r" % diffs)
+    check(u_rec["steps"] == 2 * resume["per_epoch"]
+          and r_rec["steps"] == resume["per_epoch"],
+          "data (a): steps %d and %d" % (u_rec["steps"], r_rec["steps"]))
+    check(len(digests["unbroken"]) == 1
+          and u_rec["epoch_digests"]["1"] == r_rec["epoch_digests"]["1"]
+          and digests["unbroken"][0] == u_rec["digest"],
+          "data (a): data digests %s / %s" % (u_rec["epoch_digests"],
+                                              r_rec["epoch_digests"]))
+    check(u_rec["losses"]["1"] == r_rec["losses"]["1"]
+          and all(math.isfinite(v) for v in u_rec["losses"].values()),
+          "data (a): losses %s / %s" % (u_rec["losses"], r_rec["losses"]))
+    for name, rec in (("unbroken", u_rec), ("resumed", r_rec)):
+        check(rec["launches"] == {k: layers * rec["steps"] for k in kernels},
+              "data (a): %s launches %s for %d steps"
+              % (name, rec["launches"], rec["steps"]))
+    # (b): every record of every epoch acknowledged exactly once, read
+    # again only in a killed worker's unacknowledged tail
+    for epoch, cov in coverage.items():
+        check(cov["acked_missing"] == cov["acked_twice"]
+              == cov["acked_unknown"] == cov["read_missing"] == 0,
+              "data (b): epoch %d coverage %s" % (epoch, cov))
+    check(redispatch is not None and redispatch["start"] == v_offset
+          and 0 < v_offset < lines[v_task["file"]],
+          "data (b): B's task %d (reported at %d) re-dispatched as %s"
+          % (v_task["t"], v_offset, redispatch))
+    check(sum(c["read_again"] for c in coverage.values())
+          <= len(v_read) - (v_offset - v_task["start"]),
+          "data (b): records read again %s beyond B's unacknowledged tail"
+          % {e: c["read_again"] for e, c in coverage.items()})
+    check(churn["a_rc"] == 0 and churn["job_status"] == "COMPLETE"
+          and out_b["stages"] >= 2 and churn["b_rc"] != 0,
+          "data (b): launchers %s/%s, job %r, %d stages"
+          % (churn["a_rc"], churn["b_rc"], churn["job_status"],
+             out_b["stages"]))
+    check(churn["status_rc"] == 0 and isinstance(churn["status"], dict)
+          and churn["status"]["dispatcher"]["files"] == DATA_FILES
+          and "cluster" in churn["status"],
+          "data (b): edl-status %s" % churn["status"])
+    check(all(w["steps"] > 0 and w["launches"] == {
+        k: layers * w["steps"] for k in kernels} for w in workers),
+          "data (b): launches %s" % workers)
+    return out
+
+
+def _repaced_rules():
+    from edl_tpu_torch.obs import monitor as obs_monitor
+
+    rules = obs_monitor.builtin_rules()
+    for rule in rules:
+        for field, value in MONITOR_PACING.get(rule.name, {}).items():
+            setattr(rule, field, value)
+    return rules
+
+
+def _scale_job(work: str) -> dict:
+    """Phase autoscale's job (see the module docstring); what the phase
+    checks and reports, raw."""
+    from edl_tpu_torch.chaos import drill
+    from edl_tpu_torch.obs import events as obs_events
+    from edl_tpu_torch.obs import monitor as obs_monitor
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+    from edl_tpu_torch.scale import decide as scale_decide
+    from edl_tpu_torch.scale import scaler as scale_scaler
+    from edl_tpu_torch.store.client import StoreClient
+
+    job = SCALE_JOB
+    cp = _ControlPlane(work, job, True, SMOKE_EPOCHS=str(SCALE_EPOCHS),
+                       EDL_OBS_PORT="0")
+    signal = {"cap": 2, "gns": SCALE_GNS_POOR}
+    trace = []
+    scaler = scale_scaler.Scaler(
+        cp.endpoint, [scale_scaler.JobSpec(job, min_world=1, max_world=2)],
+        interval=SCALE_INTERVAL_S, capacity=lambda: signal["cap"],
+        params=scale_decide.ScaleParams(alpha=0.05, gns=SCALE_GNS_RICH,
+                                        hysteresis=0.02, cooldown_s=3.0),
+        flight_dir=cp.env["EDL_FLIGHT_DIR"],
+        stats_override=lambda _job: {"gns": signal["gns"],
+                                     "per_pod_rate": 1.0,
+                                     "goodput_ratio": 1.0},
+        registry=MetricsRegistry(), scrape_timeout=0.5)
+    fired = []
+    mon = obs_monitor.Monitor(
+        cp.endpoint, job, rules=_repaced_rules(),
+        interval=MONITOR_INTERVAL_S,
+        monitor_dir=os.path.join(work, "monitor"),
+        registry=MetricsRegistry(), scrape_timeout=0.5)
+    mon.add_on_fire(lambda rule, doc: fired.append(dict(doc)))
+    timings = {"scrape_ms": [], "rules_ms": []}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                timings[key].append((time.perf_counter() - t) * 1e3)
+        return call
+
+    # a sweep (discover, scrape, retain, evaluate) and its rule pass alone
+    mon.poll_once = timed(mon.poll_once, "scrape_ms")
+    mon.evaluate = timed(mon.evaluate, "rules_ms")
+    stop = threading.Event()
+    sweeps = []
+
+    def sweep_loop():
+        while not stop.wait(SCALE_INTERVAL_S):
+            t = time.perf_counter()
+            scaler.poll_once()
+            sweeps.append((time.perf_counter() - t) * 1e3)
+
+    def shift(name, gns):
+        signal["gns"] = gns
+        trace.append({"phase": name, "ts": time.time(), "gns": gns,
+                      "cap": signal["cap"]})
+
+    sweeper = threading.Thread(target=sweep_loop, daemon=True)
+    res = {"job": job}
+    try:
+        shift("poor", SCALE_GNS_POOR)
+        t = time.perf_counter()
+        res["first"] = [dataclasses.asdict(d) for d in scaler.poll_once()]
+        sweeps.append((time.perf_counter() - t) * 1e3)
+        sweeper.start()
+        mon.start()
+        a = cp.pod()
+        _wait(lambda: cp.records(), "autoscale: A's worker", [a])
+        b = cp.pod()
+        _wait(lambda: cp.reached(ELASTIC_JOIN_EPOCH),
+              "autoscale: epoch %d" % ELASTIC_JOIN_EPOCH, [a, b])
+        items = cp.items()
+        cluster = json.loads(items["/%s/cluster/current" % job][0])
+        res["held"] = {"published_pods": len(cluster.get("pods", [])),
+                       "b_alive": b.poll() is None,
+                       "b_workers": [r["pid"] for r in cp.records()
+                                     if r["launcher_pid"] == b.pid]}
+        shift("rich", SCALE_GNS_RICH)
+        _wait(lambda: cp.reached(ELASTIC_KILL_EPOCH),
+              "autoscale: epoch %d at world 2" % ELASTIC_KILL_EPOCH, [a, b])
+        shift("poor", SCALE_GNS_POOR)
+        res["b_rc"] = b.wait(timeout=ELASTIC_WAIT_S)
+        res["a_rc"] = a.wait(timeout=ELASTIC_WAIT_S)
+        res["end_ts"] = time.time()
+        time.sleep(MONITOR_QUIET_S)  # the monitor evaluates past COMPLETE
+        stop.set()
+        sweeper.join(timeout=30)
+        mon.stop()
+        items = cp.items()
+        res["job_status"] = (items.get("/%s/job/status" % job)
+                             or (b"",))[0].decode()
+        res["target"] = json.loads(items["/%s/scale/target" % job][0])
+        res["preempt"] = {k.rsplit("/", 1)[1]: json.loads(v)
+                          for k, (v, _l) in items.items()
+                          if "/preempt/" in k}
+        res["bump_ts"] = {}
+        for key, (value, _lease) in items.items():
+            found = re.match(r"/%s/events/([0-9a-f]+)/drain\." % job, key)
+            if found:
+                res["bump_ts"][found.group(1)] = float(value)
+        reader = StoreClient(cp.endpoint, timeout=10.0)
+        try:
+            res["alerts"] = obs_monitor.read_alerts(reader, job)
+        finally:
+            reader.close()
+        res["records"] = cp.records()
+        res["flight"] = cp.flight()
+        res["transitions"] = [
+            e for e in obs_events.read_segments(os.path.join(work, "monitor"))
+            if e.get("event") == "alert"]
+        res["losses"] = drill.read_losses(cp.out)
+        res["launcher_logs"] = {"a": open(a.log).read(),
+                                "b": open(b.log).read()}
+    except BaseException:
+        for name in sorted(os.listdir(cp.logs)):
+            sys.stderr.write("--- %s\n%s" % (
+                name, _tail(os.path.join(cp.logs, name))))
+        raise
+    finally:
+        stop.set()
+        mon.stop()
+        scaler.stop()
+        cp.close()
+    res["trace"] = trace
+    res["sweeps_ms"] = sweeps
+    res["fired"] = fired
+    res["monitor_ms"] = timings
+    return res
+
+
+def _stage_launches(recs: list) -> dict:
+    """``{stage: {"ranks", "steps", "launches"}}``: each worker's K1-K3
+    launches and steps by the stage that took them (the difference of
+    its counts at consecutive epoch ends)."""
+    out = {}
+    for rec in recs:
+        prev_l, prev_s = None, 0
+        for ep in rec.get("epochs", []):
+            cur = ep["launches"]
+            delta = {k: v - (prev_l or {}).get(k, 0) for k, v in cur.items()}
+            row = out.setdefault(ep["stage"], {"world": ep["world"],
+                                               "ranks": set(), "steps": 0,
+                                               "launches": {}})
+            row["ranks"].add(rec["pid"])
+            row["steps"] += ep["steps"] - prev_s
+            for k, v in delta.items():
+                row["launches"][k] = row["launches"].get(k, 0) + v
+            prev_l, prev_s = cur, ep["steps"]
+    for row in out.values():
+        row["ranks"] = sorted(row["ranks"])
+    return out
+
+
+def phase_autoscale(torch, smi: str) -> dict:
+    """The goodput autoscaler on the card (see the module docstring): a
+    live port ``Scaler`` and ``Monitor`` around phase elastic's flagship
+    worker (4 layers) in a hot two-pod job. The work directory is
+    removed afterwards."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.obs import trace as obs_trace
+
+    work = tempfile.mkdtemp(prefix="edl-autoscale-")
+    t0 = time.monotonic()
+    try:
+        res = _scale_job(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seconds = time.monotonic() - t0
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    layers = ELASTIC_TRAIN["num_layers"]
+    flight = res.pop("flight")
+    decisions = sorted((e for e in flight if e.get("event") ==
+                        "scale_decision"), key=lambda e: e["seq"])
+    reconciles = {e["seq"]: e for e in flight
+                  if e.get("event") == "scale_reconcile"}
+    releases = [e for e in flight if e.get("event") == "scale_preempt"]
+    drains = [e for e in flight if e.get("event") == "drain"]
+    drained = [e for e in flight if e.get("event") == "drained"]
+    recs = res["records"]
+    survivor = recs[0]  # pod A's first worker
+    stages = _stage_launches(recs)
+    # each stage's first finished step: the last of its ranks', whether a
+    # rank adopted the stage in-process or started in it
+    first_step = {}
+    for r in recs:
+        if r["first_step_end_ts"]:
+            first_step[r["stage"]] = max(first_step.get(r["stage"], 0.0),
+                                         r["first_step_end_ts"][0])
+        for x in r["restages"]:
+            first_step[x["stage"]] = max(first_step.get(x["stage"], 0.0),
+                                         x["first_step_end_ts"])
+    order = sorted(stages, key=lambda st: first_step[st])
+    bumps = sorted(res["bump_ts"].values())
+    moves = []
+    for dec, stage in zip(decisions[1:], order[1:]):
+        bump = min((t for t in bumps if t >= dec["ts"]), default=None)
+        moves.append({
+            "seq": dec["seq"], "kind": dec["kind"], "target": dec["target"],
+            "stage": stage[:8],
+            "decision_to_bump_s": bump - dec["ts"] if bump else None,
+            "bump_to_first_step_s": (first_step[stage] - bump
+                                     if bump else None),
+            "decision_to_first_step_s": first_step[stage] - dec["ts"],
+            "reconcile_trace": (reconciles.get(dec["seq"]) or {}).get(
+                "trace_id"),
+        })
+    # a restage is in flight from the end of the last epoch before it (its
+    # boundary's save, then the hold for the decision; the job's start for
+    # the first stage) to its stage's first finished step
+    epoch_end = {}
+    for r in recs:
+        for ep in r.get("epochs", []):
+            epoch_end[ep["epoch"]] = min(ep["ts"], epoch_end.get(
+                ep["epoch"], ep["ts"]))
+    starts = [min(e["ts"] for e in flight)] + [
+        epoch_end[e - 1] for e in (ELASTIC_JOIN_EPOCH, ELASTIC_KILL_EPOCH)]
+    windows = [(lo, first_step[st]) for lo, st in zip(starts, order)]
+    # pod A's workers: one process through a hot grow; the shrink's second
+    # drain (the released pod's launcher triggers one as the leader's
+    # lands) may respawn it cold
+    a_workers = [r for r in recs if r["launcher_pid"] == survivor[
+        "launcher_pid"]]
+    rules = {r.name: r for r in _repaced_rules()}
+    # an alert a restage trips surfaces within its rule's own hold after
+    # the new stage's first step: a departed endpoint's silence bound, a
+    # rate window with its for_s, two monitor sweeps
+    settle = max(rules["dead-endpoint"].stale_s,
+                 rules["goodput-degraded"].window_s
+                 + rules["goodput-degraded"].for_s) + 2 * MONITOR_INTERVAL_S
+    def window_of(ts):
+        for i, (lo, hi) in enumerate(windows):
+            if lo <= ts <= hi + settle:
+                return i
+        return None
+
+    alerts = [{"rule": e["rule"], "state": e["state"], "ts": e["ts"],
+               "at_s": e["ts"] - res["trace"][0]["ts"],
+               "value": e.get("value"),
+               "restage": window_of(e["ts"]),
+               "after_complete": e["ts"] > res["end_ts"]}
+              for e in res["transitions"]]
+    evidence = {d["rule"]: d.get("evidence") for d in res["fired"]}
+    losses = {e: v for e, (v, _s) in res["losses"].items()}
+    sweeps = sorted(res["sweeps_ms"])
+
+    def spread(values):
+        values = sorted(values)
+        return {"n": len(values), "median": values[len(values) // 2],
+                "max": values[-1]} if values else None
+
+    # alert latency: a restage's start to the firings it caused
+    latency = [a["ts"] - starts[a["restage"]] for a in alerts
+               if a["state"] == "firing" and a["restage"]]
+    out = {
+        "phase": "autoscale", "config": "flagship, 4 layers",
+        "tokens": [FLAGSHIP_TRAIN["batch"], FLAGSHIP_TRAIN["seq"]],
+        "epochs": SCALE_EPOCHS, "batches_per_epoch": ELASTIC_BATCHES,
+        "seconds": seconds,
+        "trace": [{"phase": t["phase"], "gns": t["gns"], "cap": t["cap"],
+                   "at_s": t["ts"] - res["trace"][0]["ts"]}
+                  for t in res["trace"]],
+        "decisions": [{k: d.get(k) for k in ("seq", "kind", "target",
+                                             "world", "cause", "trace_id")}
+                      for d in decisions],
+        "target": res["target"], "held": res["held"],
+        "moves": moves,
+        "releases": [{k: e.get(k) for k in ("pod", "seq", "cause",
+                                            "trace_id")} for e in releases],
+        "preempt": res["preempt"],
+        "drain_causes": [e.get("cause") for e in drains],
+        "drained": [{k: e.get(k) for k in ("step", "pid")}
+                    for e in drained],
+        "a_rc": res["a_rc"], "b_rc": res["b_rc"],
+        "job_status": res["job_status"],
+        "survivor": {"pids": [r["pid"] for r in a_workers],
+                     "restages": [[(x["from_world"], x["world"], x["state"])
+                                   for x in r["restages"]]
+                                  for r in a_workers],
+                     "losses": {str(e): v for e, v in sorted(losses.items())}},
+        "stages": [{"stage": st[:8], "world": stages[st]["world"],
+                    "ranks": len(stages[st]["ranks"]),
+                    "steps": stages[st]["steps"],
+                    "launches": stages[st]["launches"]}
+                   for st in order],
+        "sweep_ms": spread(sweeps),
+        "monitor": {"rules": len(rules), "interval_s": MONITOR_INTERVAL_S,
+                    "sweep_ms": spread(res["monitor_ms"]["scrape_ms"]),
+                    "rules_ms": spread(res["monitor_ms"]["rules_ms"]),
+                    "alert_latency_s": latency,
+                    "settle_s": settle, "alerts": alerts,
+                    "evidence": evidence,
+                    "published": sorted(res["alerts"])},
+        "launches": {k: sum(r["launches"][k] for r in recs)
+                     for k in kernels},
+        "card": smi,
+    }
+    emit(out)
+    kinds = [(d["kind"], d["target"]) for d in decisions]
+    check(kinds == [("grow", 1), ("grow", 2), ("shrink", 1)],
+          "autoscale: decisions %s" % kinds)
+    check(res["held"]["published_pods"] == 1 and res["held"]["b_alive"]
+          and not res["held"]["b_workers"],
+          "autoscale: B not held at target 1: %s" % res["held"])
+    for d in decisions:
+        check(d["trace_id"] == obs_trace.op_trace_id("scale", str(d["seq"])),
+              "autoscale: decision %s without its trace id" % d)
+    for m in moves:
+        check(m["reconcile_trace"] == obs_trace.op_trace_id(
+            "scale", str(m["seq"])) and m["decision_to_bump_s"] is not None
+            and m["decision_to_bump_s"] >= 0,
+            "autoscale: the launcher's reconcile of seq %s: %s"
+            % (m["seq"], m))
+    check(res["target"]["pods"] == 1 and res["target"]["seq"] == 3,
+          "autoscale: final target %s" % res["target"])
+    # the shrink is a drain: an autoscale notice to B, B's worker drained
+    # and its launcher exited 76, the survivor kept its state
+    # (the leader may publish the one notice on more than one tick)
+    (b_pod,) = res["preempt"] if len(res["preempt"]) == 1 else (None,)
+    notice = res["preempt"].get(b_pod, {})
+    check(notice.get("cause") == "autoscale" and notice.get("seq") == 3
+          and releases and all(
+              r["pod"] == b_pod[:8] and r["seq"] == 3
+              and r["trace_id"] == obs_trace.op_trace_id("scale", "3")
+              for r in releases),
+          "autoscale: release %s / %s" % (res["preempt"], releases))
+    check(res["b_rc"] == 76 and len(drained) == 1
+          and drained[0].get("pid") in {r["pid"] for r in recs
+                                        if r not in a_workers},
+          "autoscale: B exited %s, drained records %s"
+          % (res["b_rc"], drained))
+    check("autoscale" in [e.get("cause") for e in drains],
+          "autoscale: drain causes %s" % out["drain_causes"])
+    check(res["a_rc"] == 0 and res["job_status"] == "COMPLETE",
+          "autoscale: A exited %s, job %r" % (res["a_rc"], res["job_status"]))
+    check(survivor["restages"][:1] and survivor["restages"][0]["world"] == 2
+          and survivor["restages"][0]["state"] == "keep",
+          "autoscale: the grow was not a hot restage of A: %s"
+          % out["survivor"])
+    check(sorted(losses) == list(range(SCALE_EPOCHS)) and all(
+        math.isfinite(v) for v in losses.values()),
+          "autoscale: survivor losses %s" % losses)
+    # K1-K3 in every step of every stage (GNS halves: twice a step)
+    check([s["world"] for s in out["stages"]] == [1, 2, 1] and all(
+        s["steps"] > 0 and s["launches"] == {
+            k: 2 * layers * s["steps"] for k in kernels}
+        for s in out["stages"]), "autoscale: stage launches %s"
+        % out["stages"])
+    # the monitor-clean contract: no alert fires in a steady stretch or
+    # after COMPLETE
+    bad = [a for a in alerts if a["state"] == "firing"
+           and (a["restage"] is None or a["after_complete"])]
+    check(not bad, "autoscale: alerts outside a restage: %s" % bad)
     return out
 
 
@@ -4706,24 +5770,19 @@ def phase_lm_parallel(torch, smi: str) -> dict:
     res["decode_check"] = dcheck
     torch.cuda.empty_cache()
 
-    # (b) lm_generate on the card
-    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    # (b) lm_generate on the card, its main in this process
     t1 = time.monotonic()
-    gen = subprocess.run(
-        [sys.executable, "-m", "edl_tpu_torch.examples.lm_generate"],
-        capture_output=True, text=True, env=env, cwd=HERE,
-        timeout=LM_WORKER_TIMEOUT_S)
-    found = re.search(r"^launches (\{.*\})$", gen.stdout, re.M)
+    rc, stdout = _in_process(lambda: examples_main("lm_generate", []))
+    found = re.search(r"^launches (\{.*\})$", stdout, re.M)
     res["lm_generate"] = {
-        "rc": gen.returncode, "ok": "OK: generation continues" in gen.stdout,
+        "rc": rc, "ok": "OK: generation continues" in stdout,
         "launches": (json.loads(found.group(1).replace("'", '"'))
                      if found else None),
         "seconds": time.monotonic() - t1,
-        "lines": [ln for ln in gen.stdout.splitlines()
+        "lines": [ln for ln in stdout.splitlines()
                   if ln.startswith(("step", "generated"))]}
-    if gen.returncode != 0:
-        sys.stderr.write(gen.stdout[-3000:] + gen.stderr[-6000:])
+    if rc != 0:
+        sys.stderr.write(stdout[-3000:])
 
     # (c) long context
     lc = _long_context(torch)
@@ -5700,23 +6759,18 @@ def phase_ctr(torch, smi: str, lmp: dict) -> dict:
 
     t0 = time.monotonic()
     res = {"phase": "ctr", "card": smi}
-    # (a) the example as a user runs it, its printed lines kept
-    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
-    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    # (a) the example's main in this process, its printed lines kept
     t1 = time.monotonic()
-    run = subprocess.run(
-        [sys.executable, "-m", "edl_tpu_torch.examples.ctr_train",
-         "--vocab", str(CTR_VOCAB), "--steps", str(CTR_STEPS),
-         "--batch", str(CTR_BATCH)],
-        capture_output=True, text=True, env=env, cwd=HERE,
-        timeout=LM_WORKER_TIMEOUT_S)
-    if run.returncode != 0:
-        sys.stderr.write(run.stdout[-3000:] + run.stderr[-6000:])
-    lines = [ln for ln in run.stdout.splitlines()
+    rc, stdout = _in_process(lambda: examples_main("ctr_train", [
+        "--vocab", str(CTR_VOCAB), "--steps", str(CTR_STEPS),
+        "--batch", str(CTR_BATCH)]))
+    if rc != 0:
+        sys.stderr.write(stdout[-3000:])
+    lines = [ln for ln in stdout.splitlines()
              if ln.startswith(("step ", "final "))]
     readings = [float(ln.split()[-1]) for ln in lines]
     auc = readings[-1] if readings else float("nan")
-    res["example"] = {"rc": run.returncode, "auc": auc, "lines": lines,
+    res["example"] = {"rc": rc, "auc": auc, "lines": lines,
                       "auc_min": CTR_AUC_MIN,
                       "seconds": time.monotonic() - t1}
     # the DeepFM step alone at the example's sizes: ms, peak memory
@@ -5799,6 +6853,35 @@ def phase_ctr(torch, smi: str, lmp: dict) -> dict:
     return res
 
 
+def examples_main(name: str, argv: list):
+    """``edl_tpu_torch.examples.<name>.main(argv)``."""
+    import importlib
+
+    return importlib.import_module("edl_tpu_torch.examples." + name).main(
+        argv)
+
+
+def _in_process(fn) -> tuple:
+    """``(rc, stdout)`` of an entry point's ``main`` called in this
+    process (no other phase prints meanwhile): 0 unless it returned a
+    nonzero int or raised (then the traceback follows its output)."""
+    import contextlib
+    import io
+    import traceback
+
+    buf = io.StringIO()
+    rc = 0
+    with contextlib.redirect_stdout(buf):
+        try:
+            out = fn()
+            if isinstance(out, int) and not isinstance(out, bool):
+                rc = out
+        except Exception:  # noqa: BLE001 — reported like an exit code
+            traceback.print_exc(file=buf)
+            rc = 1
+    return rc, buf.getvalue()
+
+
 def _lm_paths(lmp: dict, name: str) -> dict:
     """Phase lm_parallel's launches of kernel ``name`` by path: the ring
     (every rank of the tp 2 x sp 2 job), Ulysses and the tp 2 step (both
@@ -5817,17 +6900,29 @@ def _pp_paths(pipe: dict, name: str) -> dict:
         for n in r["launches"]) for sched in ("gpipe", "1f1b")}
 
 
+def _data_paths(data: dict, scale: dict, name: str) -> dict:
+    """Phases data's and autoscale's launches of kernel ``name``: the
+    example alone (unbroken and resumed runs), its churned job (every
+    worker, killed ones to their last step), the autoscaled job."""
+    return {"data_resume": data["launches"]["data_resume"][name],
+            "data_churn": data["launches"]["data_churn"][name],
+            "autoscale": scale["launches"][name]}
+
+
 def phase_alone(torch, name: str, repeat: int) -> int:
-    """``chip_smoke.py --phase NAME [N]``: phase ``distill`` or
-    ``restage_planes`` (without phase elastic's cold grow beside it) N
-    times after the device and build phases, each repeat's failed check
-    printed and counted; exit 1 if any failed. Prints no result line."""
+    """``chip_smoke.py --phase NAME [N]``: phase ``distill``,
+    ``restage_planes`` (without phase elastic's cold grow beside it),
+    ``data`` or ``autoscale`` N times after the device and build phases,
+    each repeat's failed check printed and counted; exit 1 if any failed.
+    Prints no result line."""
     dev = phase_device(torch)
     build = phase_build()
     run = {"distill": lambda: phase_distill(torch, dev["nvidia_smi"]),
            "restage_planes": lambda: phase_restage_planes(
-               torch, dev["nvidia_smi"], {"cold": {"time_to_recover": []}},
-               build["seconds"])}[name]
+               torch, dev["nvidia_smi"], build["seconds"]),
+           "data": lambda: phase_data(torch, dev["nvidia_smi"]),
+           "autoscale": lambda: phase_autoscale(torch, dev["nvidia_smi"]),
+           }[name]
     failed = 0
     for i in range(repeat):
         try:
@@ -5878,6 +6973,11 @@ def main() -> int:
         lm_parallel_child(torch, sys.argv[2], int(sys.argv[3]),
                           int(sys.argv[4]))
         return 0
+    if sys.argv[1:2] in (["--data-example"], ["--data-launched"]):
+        check(sys.argv[3:4] == ["--"], "usage: %s OUT_DIR -- ARGS" % sys.argv[1])
+        data_child(torch, sys.argv[2], sys.argv[4:],
+                   launched=sys.argv[1] == "--data-launched")
+        return 0
     if sys.argv[1:2] == ["--pp-launched"]:
         pp_launched(torch, sys.argv[2], int(sys.argv[3]), int(sys.argv[4]))
         return 0
@@ -5905,19 +7005,45 @@ def main() -> int:
     done("model+serve")
     train = phase_train(torch, dev["nvidia_smi"])
     done("train")
-    elastic = phase_elastic(torch, dev["nvidia_smi"], train)
-    done("elastic")
-    planes = phase_restage_planes(torch, dev["nvidia_smi"], elastic,
-                                  build["seconds"])
-    done("restage_planes")
-    # phase trainee (its own store and launchers around a quadratic bowl
-    # that barely uses the card, mostly waiting on process starts) runs
-    # beside phase tiers; an exception of either is raised once both end
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        trainee = pool.submit(phase_trainee, torch, dev["nvidia_smi"])
+    # Phases that mostly wait on process starts, leases and holds, and
+    # check no time, run beside the long jobs of phases elastic and tiers
+    # (an exception of any is raised once all of its block end): phase
+    # autoscale, with phase data beside it, beside phase elastic's two
+    # jobs once its reference has run alone; phases restage_planes and
+    # trainee beside phase tiers.
+    beside_s = {}
+
+    def timed(name, fn, *args):
+        t = time.monotonic()
+        out = fn(*args)
+        beside_s[name] = time.monotonic() - t
+        return out
+
+    running = []
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        elastic = phase_elastic(
+            torch, dev["nvidia_smi"], train,
+            after_reference=lambda: running.extend([
+                pool.submit(timed, "autoscale", phase_autoscale, torch,
+                            dev["nvidia_smi"]),
+                pool.submit(timed, "data", phase_data, torch,
+                            dev["nvidia_smi"])]))
+        scale, data = [fut.result() for fut in running]
+    done("elastic|autoscale,data")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        trainee = pool.submit(timed, "trainee", phase_trainee, torch,
+                              dev["nvidia_smi"])
+        planes = pool.submit(timed, "restage_planes", phase_restage_planes,
+                             torch, dev["nvidia_smi"], build["seconds"])
         tiers = phase_tiers(torch, dev["nvidia_smi"])
         trainee.result()
-    done("tiers+trainee")
+        planes = planes.result()
+    emit({"phase": "restage_planes_grow_vs_elastic",
+          "planes_bump_to_first_step_s": planes["grow"][
+              "bump_to_first_step_s"],
+          "elastic_cold_grow_s": [x["bump_to_first_step_s"] for x in elastic[
+              "cold"]["time_to_recover"] if x["world"] == 2]})
+    done("tiers|trainee,restage_planes")
     phase_resnet(torch, dev["nvidia_smi"])
     done("resnet")
     phase_fsdp(torch, dev["nvidia_smi"])
@@ -5932,7 +7058,8 @@ def main() -> int:
     done("pipeline")
     phase_ctr(torch, dev["nvidia_smi"], lmp)
     done("ctr")
-    emit({"phase_seconds": seconds, "total_s": marks[-1] - marks[0]})
+    emit({"phase_seconds": seconds, "total_s": marks[-1] - marks[0],
+          "beside_s": beside_s})
     leaked = sorted(
         m for m in sys.modules
         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu")
@@ -5941,6 +7068,7 @@ def main() -> int:
     flag = kernels[FLAGSHIP_CASE]
     bflag = bwd[BWD_CASES.index(FLAGSHIP_CASE)]
     w16, bw16 = kernels[STUDENT_CASE], bwd[BWD_CASES.index(STUDENT_CASE)]
+    wdata, bwdata = kernels[DATA_CASE], bwd[BWD_CASES.index(DATA_CASE)]
     nlp = distill["nlp"]
     line = [{
         "name": "flash_fwd",
@@ -5960,7 +7088,8 @@ def main() -> int:
                                  nlp["teacher_launches"]["flash_fwd"],
                              **_lm_paths(lmp, "flash_fwd"),
                              "moe": moe["train"]["launches"]["flash_fwd"],
-                             **_pp_paths(pipe, "flash_fwd")},
+                             **_pp_paths(pipe, "flash_fwd"),
+                             **_data_paths(data, scale, "flash_fwd")},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -5972,6 +7101,10 @@ def main() -> int:
         "shape": flag["shape"],
         # the distillation student's case, fp32 at head width 16
         "width16": {k: w16[k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        # phase data's example, fp32 at head width 16 over 63 tokens
+        "data_example": {k: wdata[k] for k in (
             "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         # widths without a body of their own, zero-padded to the next one
@@ -5996,7 +7129,8 @@ def main() -> int:
                                      nlp["student_launches"][name],
                                  **_lm_paths(lmp, name),
                                  "moe": moe["train"]["launches"][name],
-                                 **_pp_paths(pipe, name)},
+                                 **_pp_paths(pipe, name),
+                                 **_data_paths(data, scale, name)},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),
@@ -6016,6 +7150,13 @@ def main() -> int:
                 "bound_ms": bw16["bounds"][key]["bound_ms"],
                 "bound_by": bw16["bounds"][key]["bound_by"],
                 "library_ms": bw16["library_ms"]},
+            "data_example": {
+                "shape": bwdata["shape"], "dtype": bwdata["dtype"],
+                "max_abs_err": max(bwdata["max_abs_err"][g] for g in grads),
+                "ms": bwdata["%s_ms" % key], "plain_ms": bwdata["plain_ms"],
+                "bound_ms": bwdata["bounds"][key]["bound_ms"],
+                "bound_by": bwdata["bounds"][key]["bound_by"],
+                "library_ms": bwdata["library_ms"]},
             "widths": {wname: {
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": max(r["max_abs_err"][g] for g in grads),

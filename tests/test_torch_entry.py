@@ -262,3 +262,44 @@ def test_lm_parallel_entry_points_default_to_cuda(monkeypatch):
                  lambda: gloo_probe.probe()):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+# the data plane and the goodput autoscaler: each module on its own
+NEW_PLANE_MODULES = (
+    "edl_tpu_torch.data.dataset", "edl_tpu_torch.data.checkpoint",
+    "edl_tpu_torch.data.dispatcher", "edl_tpu_torch.data.loader",
+    "edl_tpu_torch.examples.elastic_text_lm",
+    "edl_tpu_torch.cluster.status", "edl_tpu_torch.obs.monitor",
+    "edl_tpu_torch.tools.edl_monitord", "edl_tpu_torch.scale.decide",
+    "edl_tpu_torch.scale.arbiter", "edl_tpu_torch.scale.scaler",
+    "edl_tpu_torch.tools.edl_scaled",
+)
+
+_IMPORT_ONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "edl_tpu",
+                                    "msgpack", "psutil"))
+print("LEAKED", bad)
+"""
+
+
+@pytest.mark.parametrize("module", NEW_PLANE_MODULES)
+def test_plane_module_imports_nothing_of_jax(module):
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ONE, module],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_elastic_text_lm_defaults_to_cuda(monkeypatch):
+    """The data plane's example runs on the card unless given
+    ``--device cpu``, and raises without one before it joins a job."""
+    from edl_tpu_torch.examples import elastic_text_lm
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        elastic_text_lm.main([])
