@@ -172,7 +172,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              ``python -m edl_tpu_torch.distill.discovery_server``,
              ``examples.distill_teacher`` and ``examples.distill_student``
              (ResNet50_vd at 224x224 on both sides, the student 2 epochs
-             of 8 batches of 32). (a) Teacher A wedges on its 2nd predict
+             of 8 batches of 32). (a) Teacher A (on the port that sorts
+             first as an endpoint: the student's first pick) wedges on
+             its 2nd predict
              and is SIGKILLed a second later without deregistering, and a
              replacement C starts; teacher B (``EDL_POD_ID``) gets its
              pod's preemption notice while the student holds at its second
@@ -184,7 +186,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              reader's wait per batch, a teacher's time per request, the
              time from the kill to the next batch, and, each alone, the
              student's synthetic stream per batch and its train step. (b) ``examples.
-             distill_nlp``'s teacher (K1, fp32, head width 32) and student
+             distill_nlp``'s teacher (K1, fp32, head width 32), started
+             unregistered and published by ``python -m
+             edl_tpu_torch.discovery.register --teacher``, and student
              (K1-K3, fp32, head width 16) at the example's sizes: each
              side's launches equal layers x requests or steps, and the
              student's kd-loss is finite and falls.
@@ -332,7 +336,33 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              time, and none fires outside a restage (from the end of the
              epoch before it, whose boundary save and hold it follows, to
              the new stage's first step, plus the rules' own hold) or
-             after COMPLETE.
+             after COMPLETE. While both pods hold at epoch 2's start,
+             ``python -m edl_tpu_torch.tools.edl_top --once --json``
+             lists both pods; a ``python -m edl_tpu_torch.tools.
+             edl_profile --request --steps 1 --json`` published once the
+             grown cluster is (before its first step) is answered by
+             every pod's worker with a ``torch.profiler`` trace.
+20. suite  - (after the tiers block, before phase resnet) the read side
+             of the port's runs: (a) ``python -m edl_tpu_torch.tools.
+             run_suite`` twice (``--round 1``: every step skipped but
+             ``profile_plane`` and ``lm_bench``; ``--round 2``: but
+             ``lm_bench``) into a
+             fresh ``EDL_RUN_ARCHIVE``: ``edl_profile --local`` wrote
+             trace files on ``cuda``, ``lm_bench`` trained the flagship
+             at full width ([8, 2048], 12 layers, bf16; 12 of each of
+             K1-K3 a step, warm-up included: path ``suite``), every
+             bundle's backend is ``cuda``; round 2's verdict against
+             round 1 is printed, not gated; a copy of round 2's
+             ``lm_bench`` result with its headline and ``mfu`` halved is
+             archived, and ``edl_report --check`` exits nonzero naming
+             ``mfu`` regressed. (b) ``edl_timeline -o`` and ``edl_trace
+             --op restage`` over phase chaos's worker-kill run (its
+             runner's trace, the rig's store, beside the pods'): the
+             merged Chrome trace holds the store's ``rpc:*`` spans, the
+             launchers' and the trainee's; the goodput states sum to the
+             wall clock; a complete restage critical path. (c)
+             ``examples/fit_a_line.py`` on the card, 3 epochs: finite
+             losses that fall.
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -351,9 +381,9 @@ phase pipeline's (a) and phase ctr's (b)), ``python3 chip_smoke.py
 ``python3 chip_smoke.py --data-example OUT_DIR -- ARGS`` and
 ``--data-launched OUT_DIR -- ARGS`` phase data's workers, all started by
 the phases themselves. ``python3 chip_smoke.py --phase NAME [N]`` runs
-phase ``distill``, ``restage_planes``, ``data``, ``autoscale`` or
-``chaos`` alone N times after the device and build phases, and prints no
-result line.
+phase ``distill``, ``restage_planes``, ``data``, ``autoscale``,
+``chaos`` or ``suite`` alone N times after the device and build phases,
+and prints no result line.
 """
 
 import concurrent.futures
@@ -474,12 +504,14 @@ TOL_DDP = 1e-6
 # resize harness around phase data's worker: the first stage holds after
 # CHAOS_HARNESS_HOLD_STEPS steps until the grow, and the second pod joins
 # CHAOS_HARNESS_INTERVAL_S after the first (its worker starts within it
-# on a busy host: 7-17 s cold starts in phase data)
+# on a busy host: 7-17 s cold starts in phase data, 30 s beside phase
+# tiers on a slow one, where the grow then came before the first stage's
+# first step)
 CHAOS_SCENARIOS = ("worker-kill", "store-failover")
 CHAOS_WAIT_S = 400.0
 CHAOS_HARNESS_JOB = "chip-smoke-harness"
 CHAOS_HARNESS_HOLD_STEPS = 20
-CHAOS_HARNESS_INTERVAL_S = 30.0
+CHAOS_HARNESS_INTERVAL_S = 45.0
 # phase tiers: phase elastic's schedule and worker on the checkpoint
 # tiers (a pod-local dir per pod under EDL_CKPT_LOCAL_BASE, one peer
 # replica, async saves, the durable dir as the mirror). One replication
@@ -2908,6 +2940,12 @@ SCALE_GNS_RICH = 32.0
 SCALE_GNS_POOR = 0.03
 MONITOR_INTERVAL_S = 0.5
 MONITOR_QUIET_S = 1.5  # evaluated past COMPLETE, as the JAX monitor-clean rig
+# the read side against the hot two-pod stage: edl_profile --request asks
+# for a one-step torch.profiler window once the grown cluster is published
+# (before its stage's first step: the cold joiner is still starting) and
+# waits for both pods; edl_top --once reads the job while both hold
+SCALE_PROFILE_STEPS = 1
+SCALE_CLI_WAIT_S = 120.0
 # the JAX chaos rig's re-pacing of the built-in rules for its time budgets
 # (edl_tpu/chaos/scenario.py ``_monitor_rules``): the rules are the
 # production ones, only their windows shrink
@@ -2963,8 +3001,8 @@ def data_child(torch, out_dir: str, argv: list, launched: bool) -> None:
     record the loader yields (with the epoch of its task) go to
     ``data.<stage>.<rank>.<pid>.jsonl``, and each step sleeps
     ``DATA_STEP_DELAY_S``; with ``SMOKE_HOLD_AFTER_STEPS=N`` in the env
-    the first stage to take N steps holds there until the job's drain
-    token moves past it. Writes ``data-start.<pid>.json`` first and
+    the first world-1 stage to take N steps holds there until the job's
+    drain token moves past it. Writes ``data-start.<pid>.json`` first and
     ``data-rec.<pid>.json`` at the end (steps, launches, losses, digests)
     and, alone, ``params.<pid>.pt``."""
     from edl_tpu_torch import train as train_pkg
@@ -2996,8 +3034,10 @@ def data_child(torch, out_dir: str, argv: list, launched: bool) -> None:
                           fh)
             if launched:
                 time.sleep(DATA_STEP_DELAY_S)
-            if steps[0] == hold and drill.claim(out_dir, "steps",
-                                                env0.stage):
+            # only a world-1 stage holds: a grown stage that reached the
+            # count first would wait for a grow that never comes
+            if steps[0] == hold and env0.world_size == 1 and drill.claim(
+                    out_dir, "steps", env0.stage):
                 drill.hold_until(
                     "/%s/drain/token" % env0.job_id,
                     lambda v: v is not None and v.decode() != env0.stage,
@@ -3619,8 +3659,27 @@ def _scale_job(work: str) -> dict:
                        "b_workers": [r["pid"] for r in cp.records()
                                      if r["launcher_pid"] == b.pid]}
         shift("rich", SCALE_GNS_RICH)
+        _wait(lambda: len(json.loads(cp.items()[
+            "/%s/cluster/current" % job][0]).get("pods", [])) == 2,
+              "autoscale: the grown cluster", [a, b])
+        profile = _cli(["tools.edl_profile", "--store", cp.endpoint,
+                        "--job", job,
+                        "--request", "--steps", str(SCALE_PROFILE_STEPS),
+                        "--timeout", str(SCALE_CLI_WAIT_S), "--out",
+                        os.path.join(work, "profile"), "--json"], cp.env)
+        cp.procs.append(profile)  # killed with the plane if a wait fails
         _wait(lambda: cp.reached(ELASTIC_KILL_EPOCH),
               "autoscale: epoch %d at world 2" % ELASTIC_KILL_EPOCH, [a, b])
+        res["profile"] = _cli_result(profile, SCALE_CLI_WAIT_S + 60)
+        for doc in (res["profile"]["doc"] or {}).values():
+            path = doc.get("trace")  # the work dir goes with the phase
+            doc["trace_bytes"] = (os.path.getsize(path) if path
+                                  and os.path.exists(path) else None)
+        res["top"] = _cli_result(_cli(
+            ["tools.edl_top", "--store", cp.endpoint, "--job", job, "--once",
+             "--json"], cp.env), SCALE_CLI_WAIT_S)
+        res["top_pods"] = [p["pod_id"] for p in json.loads(cp.items()[
+            "/%s/cluster/current" % job][0])["pods"]]
         shift("poor", SCALE_GNS_POOR)
         res["b_rc"] = b.wait(timeout=ELASTIC_WAIT_S)
         res["a_rc"] = a.wait(timeout=ELASTIC_WAIT_S)
@@ -3671,6 +3730,32 @@ def _scale_job(work: str) -> dict:
     return res
 
 
+def _cli(argv: list, env: dict) -> subprocess.Popen:
+    """``python -m edl_tpu_torch.<argv[0]> argv[1:]`` started in a
+    session of its own, its output kept in memory."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "edl_tpu_torch." + argv[0], *argv[1:]],
+        env=env, cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    proc.t0 = time.monotonic()
+    return proc
+
+
+def _cli_result(proc: subprocess.Popen, timeout: float) -> dict:
+    """A :func:`_cli` process's exit code, seconds, the JSON document it
+    printed last (None without one) and its stderr's tail; its session
+    is killed if it outlives ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    lines = [line for line in out.splitlines() if line.startswith("{")]
+    return {"rc": proc.returncode, "s": time.monotonic() - proc.t0,
+            "doc": json.loads(lines[-1]) if lines else None,
+            "stderr": err[-2000:]}
+
+
 def _stage_launches(recs: list) -> dict:
     """``{stage: {"ranks", "steps", "launches"}}``: each worker's K1-K3
     launches and steps by the stage that took them (the difference of
@@ -3692,6 +3777,46 @@ def _stage_launches(recs: list) -> dict:
     for row in out.values():
         row["ranks"] = sorted(row["ranks"])
     return out
+
+
+def _read_side_report(res: dict) -> dict:
+    """What ``edl_top --once --json`` and ``edl_profile --request --json``
+    answered about the hot two-pod stage."""
+    top, prof = res["top"], res["profile"]
+    snap = top["doc"] or {}
+    results = prof["doc"] or {}
+    return {
+        "top": {"rc": top["rc"], "s": top["s"],
+                "pods": [p["pod_id"] for p in (snap.get("cluster") or {}).get(
+                    "pods", [])],
+                "endpoints": sorted(e.get("name", "") for e in snap.get(
+                    "endpoints", [])),
+                "stderr": top["stderr"][-400:] if top["rc"] else ""},
+        "profile": {"rc": prof["rc"], "s": prof["s"],
+                    "answers": {name: {
+                        "pod": doc.get("pod"), "steps": doc.get("steps"),
+                        "step_ms": doc.get("step_ms"), "mfu": doc.get("mfu"),
+                        "trace": doc.get("trace"),
+                        "trace_bytes": doc.get("trace_bytes")}
+                        for name, doc in sorted(results.items())},
+                    "stderr": prof["stderr"][-400:] if prof["rc"] else ""},
+    }
+
+
+def _check_read_side(rep: dict, pods: list) -> None:
+    """edl_top lists both pods; every pod answered the capture request
+    with a torch.profiler trace."""
+    check(rep["top"]["rc"] == 0 and sorted(rep["top"]["pods"]) == sorted(
+        pods) and len(pods) == 2,
+          "autoscale: edl_top --once listed %s, want %s (rc %s)"
+          % (rep["top"]["pods"], pods, rep["top"]["rc"]))
+    answers = rep["profile"]["answers"]
+    check(rep["profile"]["rc"] == 0 and sorted(
+        a["pod"] for a in answers.values()) == sorted(pods) and all(
+        a["steps"] == SCALE_PROFILE_STEPS and a["trace_bytes"]
+        for a in answers.values()),
+          "autoscale: edl_profile --request answered %s (rc %s)"
+          % (answers, rep["profile"]["rc"]))
 
 
 def phase_autoscale(torch, smi: str) -> dict:
@@ -3837,9 +3962,11 @@ def phase_autoscale(torch, smi: str) -> dict:
                     "published": sorted(res["alerts"])},
         "launches": {k: sum(r["launches"][k] for r in recs)
                      for k in kernels},
+        "read_side": _read_side_report(res),
         "card": smi,
     }
     emit(out)
+    _check_read_side(out["read_side"], res["top_pods"])
     kinds = [(d["kind"], d["target"]) for d in decisions]
     check(kinds == [("grow", 1), ("grow", 2), ("shrink", 1)],
           "autoscale: decisions %s" % kinds)
@@ -4232,6 +4359,10 @@ def _chaos_scenarios(work: str) -> dict:
     env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     scn = os.path.join(work, "scn")
+    # the runner's own trace (its rig's store: the rpc spans) goes beside
+    # worker-kill's pods' traces, for phase suite's timeline
+    env["EDL_TRACE_DIR"] = os.path.join(scn, "worker-kill", "traces")
+    os.makedirs(env["EDL_TRACE_DIR"])
     out_path = os.path.join(work, "chaos_run.out")
     log_path = os.path.join(work, "chaos_run.log")
     t0 = time.monotonic()
@@ -4377,6 +4508,9 @@ def phase_chaos(torch, smi: str) -> dict:
     import tempfile
 
     work = tempfile.mkdtemp(prefix="edl-chaos-")
+    # worker-kill's run dir outlives the phase: phase suite reads it
+    # back (edl_timeline, edl_trace) and removes it
+    kept = tempfile.mkdtemp(prefix="edl-chaos-worker-kill-")
     t0 = time.monotonic()
     try:
         for part in ("a", "b"):
@@ -4386,6 +4520,9 @@ def phase_chaos(torch, smi: str) -> dict:
             b_f = pool.submit(_chaos_harness, os.path.join(work, "b"))
             a = _chaos_scenarios(os.path.join(work, "a"))
             b = b_f.result()
+        wk_dir = os.path.join(work, "a", "scn", "worker-kill")
+        if os.path.isdir(wk_dir):
+            shutil.move(wk_dir, kept)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -4476,6 +4613,7 @@ def phase_chaos(torch, smi: str) -> dict:
                 for k in kernels}
     out = {"phase": "chaos", "seconds": time.monotonic() - t0,
            "scenarios": out_a, "harness": out_b, "launches": launches,
+           "worker_kill_dir": os.path.join(kept, "worker-kill"),
            "card": smi}
     emit(out)
     # (a): both scenarios green on the card through the port's stack
@@ -5386,6 +5524,7 @@ def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
     from edl_tpu_torch.distill.serving import PredictClient
     from edl_tpu_torch.examples.distill_teacher import build_model
     from edl_tpu_torch.store.client import StoreClient
+    from edl_tpu_torch.utils.net import find_free_ports
 
     logs = cp.logs
     size_flag = ["--small"] if small else []
@@ -5404,10 +5543,16 @@ def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
            for n in ("disc", "a", "b", "c", "student")}
     cp._spawn([sys.executable, "-m", "edl_tpu_torch.distill.discovery_server",
                "--store", cp.endpoint, "--job_id", DISTILL_JOB], log["disc"])
+    # what decides the student's first pick: its pool breaks the
+    # least-loaded tie by endpoint, and both teachers serve on this host,
+    # so the port that sorts first as a string is the first pick. A (the
+    # teacher wedged and killed mid-epoch) takes that port.
+    port_a, port_b = sorted(find_free_ports(2), key=str)
     procs = {
-        "a": cp._spawn(teacher, log["a"], env=dict(
+        "a": cp._spawn(teacher + ["--port", str(port_a)], log["a"], env=dict(
             cp.env, EDL_CHAOS=json.dumps(wedge), EDL_CHAOS_LOG=chaos_log)),
-        "b": cp._spawn(teacher, log["b"], env=dict(cp.env, EDL_POD_ID="pod-b")),
+        "b": cp._spawn(teacher + ["--port", str(port_b)], log["b"],
+                       env=dict(cp.env, EDL_POD_ID="pod-b")),
     }
     ep = {}
 
@@ -5549,7 +5694,8 @@ def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
         "batches_before_kill": int((ts < t_kill).sum()),
         # what decides the batch A's wedge takes: the reader's
         # least-loaded pick breaks ties by endpoint, and each predict
-        # thread keeps its teacher until that one leaves the pool
+        # thread keeps its teacher until that one leaves the pool; A's
+        # port is chosen to sort first ("ab")
         "teachers_by_endpoint": "".join(sorted("ab", key=ep.get)),
         "wedge_after_student_start_s": t_wedge - t0,
         "views_before_kill": [sorted(n for n in ("a", "b", "c")
@@ -5583,25 +5729,51 @@ def _distill_image_job(torch, cp, work: str, device: str, small: bool) -> dict:
 
 def _distill_nlp_job(cp, device: str) -> dict:
     """Part (b): distill_nlp's teacher (K1 at head width 32) and student
-    (K1-K3 at head width 16) at the example's sizes."""
+    (K1-K3 at head width 16) at the example's sizes. The teacher starts
+    unregistered (no ``--store``) and ``python -m
+    edl_tpu_torch.discovery.register --teacher`` publishes it, as an
+    operator registers an external teacher."""
+    from edl_tpu_torch.utils.net import find_free_ports, get_host_ip
+
     logs = cp.logs
     base = [sys.executable, "-m", "edl_tpu_torch.examples.distill_nlp",
-            "--store", cp.endpoint, "--job_id", NLP_JOB, "--device", device,
+            "--job_id", NLP_JOB, "--device", device,
             "--epochs", str(NLP_EPOCHS), "--batches", str(NLP_BATCHES)]
     log = {n: os.path.join(logs, "nlp_%s.log" % n)
-           for n in ("disc", "teacher", "student")}
+           for n in ("disc", "teacher", "register", "student")}
     cp._spawn([sys.executable, "-m", "edl_tpu_torch.distill.discovery_server",
                "--store", cp.endpoint, "--job_id", NLP_JOB,
                "--services", "nlp-teacher"], log["disc"])
-    teacher = cp._spawn(base + ["--role", "teacher"], log["teacher"])
+    # the register CLI starts beside the teacher, on the port the teacher
+    # will serve on, and waits for it to answer (--wait_alive)
+    port = find_free_ports(1)[0]
+    endpoint = "%s:%d" % (get_host_ip(), port)
+    teacher = cp._spawn(base + ["--role", "teacher", "--port", str(port)],
+                        log["teacher"])
     t0 = time.time()
+    register = cp._spawn(
+        [sys.executable, "-m", "edl_tpu_torch.discovery.register",
+         "--store", cp.endpoint, "--job_id", NLP_JOB,
+         "--service", "nlp-teacher", "--teacher", "--endpoint", endpoint],
+        log["register"])
     try:
-        _wait(lambda: _log_has(log["teacher"], r"registered under"),
-              "the nlp teacher to register", [teacher])
-        student = cp._spawn(base + ["--role", "student"], log["student"])
+        _wait(lambda: _log_has(log["register"], r"registered \S+ under"),
+              "the register CLI to publish the nlp teacher",
+              [teacher, register])
+        _wait(lambda: _log_has(log["teacher"], r"nlp teacher serving on"),
+              "the nlp teacher to serve", [teacher])
+        check(_log_has(log["teacher"], r"nlp teacher serving on (\S+)")
+              .group(1) == endpoint, "distill nlp: the teacher serves on "
+              "another endpoint than %s" % endpoint)
+        register_s = time.time() - t0
+        student = cp._spawn(base + ["--role", "student", "--store",
+                                    cp.endpoint], log["student"])
         rc = student.wait(timeout=DISTILL_WAIT_S)
         check(rc == 0, "distill nlp: student exited %s:\n%s"
               % (rc, _tail(log["student"])))
+        register.terminate()  # deregisters the teacher, then exits 0
+        check(register.wait(timeout=60) == 0,
+              "distill nlp: register CLI exit %s" % register.returncode)
         teacher.terminate()
         check(teacher.wait(timeout=60) == 0, "distill nlp: teacher exit %s"
               % teacher.returncode)
@@ -5611,7 +5783,11 @@ def _distill_nlp_job(cp, device: str) -> dict:
         for name in sorted(log):
             sys.stderr.write("--- %s\n%s" % (name, _tail(log[name])))
         raise
-    return {"student": st, "teacher": tc, "job_s": time.time() - t0}
+    return {"student": st, "teacher": tc, "job_s": time.time() - t0,
+            "registered_by": "edl_tpu_torch.discovery.register",
+            "teacher_endpoint": endpoint, "register_s": register_s,
+            "teacher_self_registered": bool(
+                _log_has(log["teacher"], r"registered under"))}
 
 
 def phase_distill(torch, smi: str, device: str = "cuda",
@@ -5654,6 +5830,8 @@ def phase_distill(torch, smi: str, device: str = "cuda",
                    "teacher_requests": nlp["teacher"]["requests"],
                    "teacher_launches": nlp["teacher"]["launches"],
                    "teacher_launches_want": want_teacher,
+                   "registered_by": nlp["registered_by"],
+                   "register_s": nlp["register_s"],
                    "job_s": nlp["job_s"]},
            "seconds": time.monotonic() - t0}
     emit(res)
@@ -5662,6 +5840,9 @@ def phase_distill(torch, smi: str, device: str = "cuda",
           "distill (a): batches per epoch %s" % image["batches_per_epoch"])
     check(image["in_order_exactly_once"],
           "distill (a): the batches' labels are not the stream's, in order")
+    check(image["teachers_by_endpoint"] == "ab",
+          "distill (a): teacher A's endpoint does not sort first: %s"
+          % image["teachers_by_endpoint"])
     check(image["kill_in_epoch_1"],
           "distill (a): teacher A died outside the first epoch")
     check(image["mark_to_unassigned_s"] <= DRAIN_GRACE_S,
@@ -5670,6 +5851,8 @@ def phase_distill(torch, smi: str, device: str = "cuda",
     check(image["soft_label_max_err"] <= TOL_DISTILL_SOFT,
           "distill (a): served soft labels off by %.3g"
           % image["soft_label_max_err"])
+    check(not nlp["teacher_self_registered"],
+          "distill (b): the teacher registered itself")
     check(st["batches_per_epoch"] == [NLP_BATCHES] * NLP_EPOCHS,
           "distill (b): batches per epoch %s" % st["batches_per_epoch"])
     check(math.isfinite(st["first_kd_loss"]) and math.isfinite(
@@ -7118,6 +7301,224 @@ def phase_ctr(torch, smi: str, lmp: dict) -> dict:
     return res
 
 
+# phase suite: the read side of the port's runs. (a) the suite runner
+# twice, every step skipped but a round's own (the second round's lm_bench
+# is judged against the first's), each round's bundles archived into a
+# fresh EDL_RUN_ARCHIVE; then a copy of round 2's lm_bench result with
+# its headline and mfu times SUITE_DOCTOR, which the gate must call
+# regressed; (b) edl_timeline and edl_trace over phase chaos's
+# worker-kill run; (c) fit_a_line on the card
+SUITE_KEEP = {1: ("profile_plane", "lm_bench"), 2: ("lm_bench",)}
+SUITE_ROUNDS = tuple(SUITE_KEEP)
+SUITE_WAIT_S = 600.0
+SUITE_DOCTOR = 0.5
+TOL_WALL = 1e-2  # the goodput states' sum against the wall clock
+FIT_EPOCHS = 3
+
+
+def _json_doc(path: str):
+    """The last JSON object line of the file at ``path``; None without
+    one."""
+    try:
+        with open(path) as fh:
+            lines = [line for line in fh if line.startswith("{")]
+    except FileNotFoundError:
+        return None
+    return json.loads(lines[-1]) if lines else None
+
+
+def _tool(argv: list, env: dict, timeout: float) -> dict:
+    """:func:`_cli` run to its end (at most ``timeout`` seconds)."""
+    return _cli_result(_cli(argv, env), timeout)
+
+
+def _worker_kill_run(work: str) -> str:
+    """``phase_suite`` alone: a worker-kill run of its own (phase chaos's
+    scenario, its rig's trace beside the pods')."""
+    scn = os.path.join(work, "scn")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["EDL_TRACE_DIR"] = os.path.join(scn, "worker-kill", "traces")
+    os.makedirs(env["EDL_TRACE_DIR"])
+    res = _tool(["tools.chaos_run", "--scenario", "worker-kill", "--seed",
+                 "0", "--workdir", scn], env, CHAOS_WAIT_S)
+    check(res["rc"] == 0, "suite: worker-kill exited %s" % res["rc"])
+    return os.path.join(scn, "worker-kill")
+
+
+def phase_suite(torch, smi: str, wk_dir=None) -> dict:
+    """The read side of the port's runs (see the module docstring):
+    ``run_suite``'s archive and gate, ``edl_timeline`` and ``edl_trace``
+    over a worker-kill run (phase chaos's, or one of its own), and
+    ``fit_a_line`` on the card. The work directories are removed
+    afterwards."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.obs import archive as run_archive
+    from edl_tpu_torch.tools import run_suite
+
+    work = tempfile.mkdtemp(prefix="edl-suite-")
+    t0 = time.monotonic()
+    results, runs = os.path.join(work, "results"), os.path.join(work, "runs")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["EDL_RUN_ARCHIVE"] = runs
+    seconds = {}
+    try:
+        if wk_dir is None:
+            wk_dir = _worker_kill_run(os.path.join(work, "wk"))
+        # (a)
+        names = [s[0] for s in run_suite.steps(sys.executable, 0, results)]
+        rounds = {}
+        for r in SUITE_ROUNDS:
+            skip = [n for n in names if n not in SUITE_KEEP[r]]
+            rounds[r] = _tool(["tools.run_suite", "--round", str(r),
+                               "--results", results, "--skip", *skip], env,
+                              SUITE_WAIT_S)
+        seconds["run_suite"] = [rounds[r]["s"] for r in SUITE_ROUNDS]
+        lm = {r: _json_doc(os.path.join(results, "lm_cuda_r%d.json" % r))
+              for r in SUITE_ROUNDS}
+        prof = {r: _json_doc(os.path.join(
+            results, "profile_plane_cuda_r%d.json" % r)) for r in SUITE_ROUNDS}
+        verdicts = {r: _json_doc(os.path.join(
+            results, "edl_report_r%d.json" % r)) for r in SUITE_ROUNDS}
+        last = SUITE_ROUNDS[-1]
+        check(lm[last] is not None, "suite (a): no lm_bench result in round "
+              "%d: %s" % (last, rounds[last]["stderr"]))
+        doctored = dict(lm[last], value=lm[last]["value"] * SUITE_DOCTOR,
+                        mfu=lm[last]["mfu"] * SUITE_DOCTOR)
+        run_archive.maybe_archive_bench("lm_bench", doctored, backend="cuda",
+                                        job_id="cuda", root=runs)
+        bundles = run_archive.read_index(runs)  # the rounds', the doctored
+        gate = _tool(["tools.edl_report", "--runs", runs, "--check",
+                      "--json"], env, 120)
+        # (b)
+        chrome = os.path.join(work, "worker-kill.trace.json")
+        timeline = _tool(["tools.edl_timeline", wk_dir, "-o", chrome,
+                          "--json"], env, 120)
+        trace = _tool(["tools.edl_trace", wk_dir, "--op", "restage",
+                       "--json"], env, 120)
+        with open(chrome) as fh:
+            events = json.load(fh)["traceEvents"]
+        seconds["timeline_trace"] = timeline["s"] + trace["s"]
+        # (c)
+        t = time.monotonic()
+        os.environ["EDL_CKPT_PATH"] = os.path.join(work, "fit")
+        try:
+            fit_rc, fit_out = _in_process(lambda: examples_main(
+                "fit_a_line", ["--epochs", str(FIT_EPOCHS)]))
+        finally:
+            os.environ.pop("EDL_CKPT_PATH", None)
+        seconds["fit_a_line"] = time.monotonic() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if wk_dir is not None:
+            shutil.rmtree(os.path.dirname(wk_dir), ignore_errors=True)
+    names = {e["pid"]: e["args"]["name"] for e in events
+             if e.get("ph") == "M" and e.get("name") == "process_name"}
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and not names.get(e["pid"], "").startswith(
+                "goodput"):
+            spans.setdefault(names.get(e["pid"], "?").split(" [")[0],
+                             set()).add(e["name"])
+    att = (timeline["doc"] or {}).get("attribution", {})
+    ops = (trace["doc"] or {}).get("ops", [])
+    fit_losses = [float(x) for x in re.findall(
+        r"^epoch \d+ loss (\S+)$", fit_out, re.M)]
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    regressed = [(e["key"], v["metric"]) for e in (gate["doc"] or {}).get(
+        "runs", []) for v in e["verdicts"] if v["verdict"] == "regressed"]
+    lm_verdict = {r: [(v["metric"], v["verdict"], v.get("delta_pct"))
+                      for e in (verdicts[r] or {}).get("runs", [])
+                      if e["key"][0] == "lm_bench" for v in e["verdicts"]]
+                  for r in SUITE_ROUNDS}
+    out = {
+        "phase": "suite", "card": smi,
+        "rounds": {r: {"rc": rounds[r]["rc"], "s": rounds[r]["s"],
+                       "record": rounds[r]["doc"]} for r in SUITE_ROUNDS},
+        "lm_bench": {r: {k: (lm[r] or {}).get(k) for k in (
+            "value", "mfu", "step_ms", "steps", "warmup", "loss",
+            "launches")} for r in SUITE_ROUNDS},
+        "profile_plane": {r: {k: (prof[r] or {}).get(k) for k in (
+            "platform", "device", "value", "trace_files", "step_flops",
+            "hbm_bytes_in_use")} for r in SUITE_ROUNDS},
+        "bundles": [{k: b.get(k) for k in ("bundle", "kind", "backend",
+                                           "job_id")} for b in bundles],
+        # round 2 judged against round 1 on this card: printed, not gated
+        "honest_verdict": lm_verdict,
+        "doctored": {"rc": gate["rc"], "regressed": regressed},
+        "timeline": {"rc": timeline["rc"], "wall_s": att.get("wall_s"),
+                     "covered_s": att.get("covered_s"),
+                     "states": att.get("states"),
+                     "span_processes": {k: sorted(v)[:8]
+                                        for k, v in sorted(spans.items())}},
+        "trace": {"rc": trace["rc"], "ops": [
+            {"op": o["op"], "complete": o["complete"],
+             "covered_s": o["covered_s"], "segments": len(o["path"]),
+             "processes": o["processes"]} for o in ops]},
+        "fit_a_line": {"rc": fit_rc, "epochs": FIT_EPOCHS,
+                       "losses": fit_losses},
+        "seconds": dict(seconds, total=time.monotonic() - t0),
+        "launches": {k: sum((lm[r] or {}).get("launches", {}).get(k, 0)
+                            for r in SUITE_ROUNDS) for k in kernels},
+    }
+    emit(out)
+    # (a)
+    check(rounds[1]["rc"] == 0 and all(
+        (rounds[r]["doc"] or {}).get("value") == len(SUITE_KEEP[r])
+        for r in SUITE_ROUNDS),
+          "suite (a): run_suite rounds %s" % {
+              r: (rounds[r]["rc"], rounds[r]["doc"], rounds[r]["stderr"][-600:])
+              for r in SUITE_ROUNDS})
+    for r in SUITE_ROUNDS:
+        p = prof[r] or {}
+        check("profile_plane" not in SUITE_KEEP[r] or (
+            p.get("platform") == "cuda" and p.get("trace_files", 0) > 0),
+              "suite (a): profile_plane round %d: %s" % (r, p))
+        want = {k: FLAGSHIP_TRAIN["num_layers"] * (
+            (lm[r] or {}).get("steps", 0) + (lm[r] or {}).get("warmup", 0))
+            for k in kernels}
+        check(lm[r] is not None and lm[r]["launches"] == want
+              and lm[r]["steps"] > 0 and math.isfinite(lm[r]["loss"]),
+              "suite (a): lm_bench round %d launches %s, want %s"
+              % (r, (lm[r] or {}).get("launches"), want))
+    lm_rows = [b for b in out["bundles"] if b["kind"] == "lm_bench"]
+    check(len(lm_rows) == len(SUITE_ROUNDS) + 1 and all(
+        b["backend"] == "cuda" for b in out["bundles"]),
+          "suite (a): bundles %s" % out["bundles"])
+    check(gate["rc"] != 0 and (["lm_bench", "cuda", None], "mfu")
+          in regressed,
+          "suite (a): edl_report --check on the doctored bundle: rc %s, "
+          "regressed %s" % (gate["rc"], regressed))
+    # (b)
+    check(timeline["rc"] == 0 and trace["rc"] == 0,
+          "suite (b): edl_timeline rc %s, edl_trace rc %s: %s"
+          % (timeline["rc"], trace["rc"], timeline["stderr"][-600:]
+             + trace["stderr"][-600:]))
+    check(att.get("wall_s", 0) > 0 and abs(
+        sum(att["states"].values()) - att["wall_s"])
+          <= TOL_WALL * att["wall_s"],
+          "suite (b): goodput states %s over %s s of wall clock"
+          % (att.get("states"), att.get("wall_s")))
+    store_spans = any(n.startswith("rpc:") for n in spans.get("proc", ()))
+    check(store_spans and spans.get("launcher") and any(
+        k.startswith("worker") for k in spans),
+          "suite (b): merged trace's spans by process %s"
+          % out["timeline"]["span_processes"])
+    check(any(o["complete"] and o["segments"] > 0 for o in out["trace"]["ops"]
+              if o["op"] == "restage"),
+          "suite (b): no restage critical path: %s" % out["trace"])
+    # (c)
+    check(fit_rc == 0 and len(fit_losses) == FIT_EPOCHS and all(
+        math.isfinite(x) for x in fit_losses)
+          and fit_losses[-1] < fit_losses[0],
+          "suite (c): fit_a_line rc %s, losses %s:\n%s"
+          % (fit_rc, fit_losses, fit_out[-2000:]))
+    return out
+
+
 def examples_main(name: str, argv: list):
     """``edl_tpu_torch.examples.<name>.main(argv)``."""
     import importlib
@@ -7177,7 +7578,8 @@ def _data_paths(data: dict, scale: dict, name: str) -> dict:
 def phase_alone(torch, name: str, repeat: int) -> int:
     """``chip_smoke.py --phase NAME [N]``: phase ``distill``,
     ``restage_planes`` (without phase elastic's cold grow beside it),
-    ``data``, ``autoscale`` or ``chaos`` N times after the device and build phases,
+    ``data``, ``autoscale``, ``chaos`` or ``suite`` (over a worker-kill
+    run of its own) N times after the device and build phases,
     each repeat's failed check printed and counted; exit 1 if any failed.
     Prints no result line."""
     dev = phase_device(torch)
@@ -7188,6 +7590,7 @@ def phase_alone(torch, name: str, repeat: int) -> int:
            "data": lambda: phase_data(torch, dev["nvidia_smi"]),
            "autoscale": lambda: phase_autoscale(torch, dev["nvidia_smi"]),
            "chaos": lambda: phase_chaos(torch, dev["nvidia_smi"]),
+           "suite": lambda: phase_suite(torch, dev["nvidia_smi"]),
            }[name]
     failed = 0
     for i in range(repeat):
@@ -7310,6 +7713,8 @@ def main() -> int:
           "elastic_cold_grow_s": [x["bump_to_first_step_s"] for x in elastic[
               "cold"]["time_to_recover"] if x["world"] == 2]})
     done("tiers|chaos,restage_planes")
+    suite = phase_suite(torch, dev["nvidia_smi"], chaos["worker_kill_dir"])
+    done("suite")
     phase_resnet(torch, dev["nvidia_smi"])
     done("resnet")
     phase_fsdp(torch, dev["nvidia_smi"])
@@ -7356,7 +7761,8 @@ def main() -> int:
                              "moe": moe["train"]["launches"]["flash_fwd"],
                              **_pp_paths(pipe, "flash_fwd"),
                              **_data_paths(data, scale, "flash_fwd"),
-                             "harness": chaos["launches"]["flash_fwd"]},
+                             "harness": chaos["launches"]["flash_fwd"],
+                             "suite": suite["launches"]["flash_fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -7398,7 +7804,8 @@ def main() -> int:
                                  "moe": moe["train"]["launches"][name],
                                  **_pp_paths(pipe, name),
                                  **_data_paths(data, scale, name),
-                                 "harness": chaos["launches"][name]},
+                                 "harness": chaos["launches"][name],
+                                 "suite": suite["launches"][name]},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),

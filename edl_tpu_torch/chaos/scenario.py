@@ -69,7 +69,12 @@ its monitor, and a :class:`ResizeHarness` that spawns
 trainee trains on the rig's ``device`` (``EDL_CHAOS_DEVICE``; ``cuda``
 by default, which raises where CUDA is absent); on the CPU the rig also
 gives the pods ``EDL_COMPILE_CACHE_DIR=none`` (a CPU worker loads no
-kernel library, so no cache exchange and no AOT ladder runs).
+kernel library, so no cache exchange and no AOT ladder runs). One
+departure: ``autoscale-multijob``'s ``priority_admission_ordered``
+compares A's shrunk stage after its preemption with B's first stage that
+has pods (the JAX scenario's comparison also admits A's bootstrap and
+B's empty held generation, so its verdict depends on process start
+order).
 """
 
 from __future__ import annotations
@@ -1959,6 +1964,29 @@ def autoscale_churn(rig: Rig) -> ScenarioOutcome:
     )
 
 
+def admission_order(a_events: list, b_events: list) -> tuple:
+    """``(a_shrunk_ts, b_first_ts)`` of ``autoscale-multijob``: A's
+    shrink is its first world-1 stage after its preemption notices (its
+    bootstrap may also have been a world-1 stage), and B's admission is
+    its first stage with pods — a held gang's leader publishes an EMPTY
+    generation at the queued target 0, which orders nothing. (The JAX
+    scenario takes A's first world-1 stage and B's first publish of any
+    size, so a run passes or fails by which process started first.)
+    None where there is no such stage."""
+    preempted_ts = min(
+        (float(e["ts"]) for e in a_events
+         if e.get("event") == "scale_preempt"), default=float("inf"))
+    a_shrunk_ts = min(
+        (float(e["ts"]) for e in a_events
+         if e.get("event") == "publish" and int(e.get("pods", 0)) == 1
+         and float(e["ts"]) >= preempted_ts), default=None)
+    b_first_ts = min(
+        (float(e["ts"]) for e in b_events
+         if e.get("event") == "publish" and int(e.get("pods", 0)) > 0),
+        default=None)
+    return a_shrunk_ts, b_first_ts
+
+
 def autoscale_multijob(rig: Rig) -> ScenarioOutcome:
     """Two elastic jobs, ONE shared 3-pod pool, one arbiter.
 
@@ -2118,12 +2146,7 @@ def autoscale_multijob(rig: Rig) -> ScenarioOutcome:
     latencies = inv.scale_reconcile_latencies(merged)
     worst_latency = max(latencies.values()) if latencies else -1.0
     preempts = [e for e in a_events if e.get("event") == "scale_preempt"]
-    a_shrunk_ts = min(
-        (float(e["ts"]) for e in pubs(a_events, 1)), default=None
-    )
-    b_first_ts = min(
-        (float(e["ts"]) for e in pubs(b_events)), default=None
-    )
+    a_shrunk_ts, b_first_ts = admission_order(a_events, b_events)
     ordered = (
         a_shrunk_ts is not None
         and b_first_ts is not None

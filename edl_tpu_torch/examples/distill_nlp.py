@@ -14,6 +14,14 @@ separate processes so the teacher fleet scales independently::
     python -m edl_tpu_torch.examples.distill_nlp --role teacher --store 127.0.0.1:2379 &
     python -m edl_tpu_torch.examples.distill_nlp --role student --store 127.0.0.1:2379
 
+A teacher started without ``--store`` serves unregistered; register it
+from outside (as the reference registers an external teacher)::
+
+    python -m edl_tpu_torch.examples.distill_nlp --role teacher &
+    python -m edl_tpu_torch.discovery.register --store 127.0.0.1:2379 \\
+        --job_id distill-nlp --service nlp-teacher --teacher \\
+        --endpoint HOST:PORT
+
 ``--device cpu`` runs either role on the CPU. The student prints
 ``epoch %d kd-loss %.4f`` per epoch, as the JAX example does, and at its
 end one ``student summary`` JSON line (batches per epoch, the first and
@@ -143,7 +151,9 @@ def run_student(args) -> None:
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--role", choices=("teacher", "student"), required=True)
-    parser.add_argument("--store", required=True)
+    parser.add_argument("--store", default=None,
+                        help="the store (the student's discovery; a "
+                        "teacher registers in it when given)")
     parser.add_argument("--job_id", default="distill-nlp")
     parser.add_argument("--service", default="nlp-teacher")
     parser.add_argument("--port", type=int, default=0)
@@ -152,6 +162,9 @@ def main(argv=None) -> None:
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    if args.role == "student" and not args.store:
+        parser.error("the student discovers its teachers: --store is "
+                     "required")
     if args.role == "teacher":
         run_teacher(args)
     else:

@@ -27,7 +27,10 @@ full decision->restage path with no clock games.
 
 The port's copy of ``edl_tpu/scale/scaler.py``: the same ``scale/target``
 and ``scale/decision`` docs, flight records and ``scale`` op trace ids,
-which the port's launcher (and the JAX one) reconcile.
+which the port's launcher (and the JAX one) reconcile. One departure:
+a job's actual world counts its preempt-noticed pods until its leader
+publishes the shrunk generation (``_actual_world``), so a grow it funds
+is released only once that shrink is real.
 """
 
 from __future__ import annotations
@@ -211,14 +214,19 @@ class Scaler:
         return bool(value) and value.strip() == b"COMPLETE"
 
     def _actual_world(self, job_id: str) -> int:
-        """Published pods that are still coming to work: the launcher
-        treats preempt-noticed pods as already gone (they drain, and
-        the next generation excludes them), so they don't count here
-        either. On a pause/preempt-to-0 no launcher may survive to
+        """The job's published world, until its shrink is real. While
+        some published pods survive the preempt notices, their leader
+        publishes the next generation without the noticed ones; until it
+        has, the published roster is the world, so a grow funded by the
+        noticed pods waits for the shrink to land, not merely to be
+        ordered (the JAX scaler discounts every noticed pod at once, and
+        a gang it admits can publish before the preempted job's shrink
+        does). Only when every published pod carries a notice (a pause,
+        a preempt to 0) is the world 0: no launcher may survive to
         publish a fresh generation at all — the victim's last
-        ``cluster/current`` doc is permanent, and without the discount
-        it would read as a shrink that never settles, deferring the
-        preempting gang's grow forever."""
+        ``cluster/current`` doc is permanent, and read as it stands it
+        would be a shrink that never settles, deferring the preempting
+        gang's grow forever."""
         reg = self._registries[job_id]
         try:
             meta = reg.get_server(CLUSTER_SERVICE, "current")
@@ -236,7 +244,9 @@ class Scaler:
             noticed = {m.name for m in reg.get_service(PREEMPT_SERVICE)}
         except Exception:  # noqa: BLE001 — blip: count the full roster
             noticed = set()
-        return sum(1 for pid in pod_ids if pid not in noticed)
+        if all(pid in noticed for pid in pod_ids):
+            return 0
+        return len(pod_ids)
 
     def _scrape_job(self, job_id: str, now: float) -> Dict[str, float]:
         """Merged metric totals across the job's live endpoints."""

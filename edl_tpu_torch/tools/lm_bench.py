@@ -24,7 +24,9 @@ the blocks' dense products under ``save_flash`` (without q/k/v under
 ``save_flash_qkv``), plus attention's forward under ``full``. MFU is that
 over the step time against the H100's bf16 dense peak, 989 TFLOP/s.
 
-Prints ONE JSON line.
+Prints ONE JSON line; its ``launches`` are the kernel wrappers' counts
+over the run (warm-up steps included; 0 on the CPU, where the wrappers
+take the plain path).
 """
 
 from __future__ import annotations
@@ -36,11 +38,13 @@ import time
 import torch
 
 from edl_tpu_torch.models.transformer import TransformerLM
+from edl_tpu_torch.ops.attention import launch_counts
 from edl_tpu_torch.train import adamw, create_state, cross_entropy_loss
 from edl_tpu_torch.train import make_train_step
 from edl_tpu_torch.utils.device import resolve_device
 
 H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA H100 SXM data sheet, dense
+WARMUP = 3  # untimed steps before the timed ones
 
 
 def config(args, on_gpu: bool) -> dict:
@@ -143,7 +147,7 @@ def main(argv=None) -> dict:
     state, step, batch = build(cfg, dev)
     steps = cfg["steps"]
 
-    for _ in range(3):
+    for _ in range(WARMUP):
         state, m = step(state, batch)
     float(m["loss"])
     t0 = time.perf_counter()
@@ -170,6 +174,9 @@ def main(argv=None) -> dict:
         "kv_heads": cfg["num_kv_heads"],
         "loss": final,
         "step_ms": dt / steps * 1e3,
+        "steps": steps,
+        "warmup": WARMUP,
+        "launches": launch_counts(),
     }
     if on_gpu:
         flops = step_flops(cfg)

@@ -278,6 +278,13 @@ NEW_PLANE_MODULES = (
     "edl_tpu_torch.harness", "edl_tpu_torch.harness.resize",
     "edl_tpu_torch.obs.archive", "edl_tpu_torch.distill.slo",
     "edl_tpu_torch.tools.chaos_run", "edl_tpu_torch.tools.serve_slo",
+    # the read side of the port's runs: register, merge, the sentinel,
+    # the CLIs, the suite runner and fit_a_line
+    "edl_tpu_torch.discovery.register", "edl_tpu_torch.obs.merge",
+    "edl_tpu_torch.obs.regress", "edl_tpu_torch.tools.edl_trace",
+    "edl_tpu_torch.tools.edl_timeline", "edl_tpu_torch.tools.edl_report",
+    "edl_tpu_torch.tools.edl_top", "edl_tpu_torch.tools.edl_profile",
+    "edl_tpu_torch.tools.run_suite", "edl_tpu_torch.examples.fit_a_line",
 )
 
 _IMPORT_ONE = r"""
@@ -365,3 +372,48 @@ def test_chaos_run_defaults_to_the_card(monkeypatch, tmp_path):
         assert harness.extra_env.get("EDL_COMPILE_CACHE_DIR") == cache
         assert harness.device == device
         assert not any(k.startswith("JAX") for k in harness.extra_env)
+
+
+# the read side's CLIs: each answers --help naming its flags
+READ_SIDE_CLIS = {
+    "edl_tpu_torch.discovery.register": ("--teacher", "--wait_alive"),
+    "edl_tpu_torch.obs.merge": ("--dir", "--no-rebase"),
+    "edl_tpu_torch.tools.edl_trace": ("--op", "--goodput"),
+    "edl_tpu_torch.tools.edl_timeline": ("--max-events", "--output"),
+    "edl_tpu_torch.tools.edl_report": ("--check", "--import-legacy"),
+    "edl_tpu_torch.tools.edl_top": ("--once", "--json"),
+    "edl_tpu_torch.tools.edl_profile": ("--request", "--local", "--device"),
+    "edl_tpu_torch.tools.run_suite": ("--round", "--skip", "--probe_budget"),
+    "edl_tpu_torch.examples.fit_a_line": ("--epochs", "--device",
+                                          "--params"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(READ_SIDE_CLIS))
+def test_read_side_cli_help(module):
+    out = subprocess.run(
+        [sys.executable, "-m", module, "--help"],
+        capture_output=True, text=True, env=_env(), cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for flag in READ_SIDE_CLIS[module]:
+        assert flag in out.stdout, (module, flag)
+
+
+def test_read_side_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """``edl_profile --local`` and ``fit_a_line`` run on the card unless
+    given ``--device cpu``, and raise without one; the suite runner
+    measures nothing without a card."""
+    from edl_tpu_torch.examples import fit_a_line
+    from edl_tpu_torch.tools import edl_profile, run_suite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("EDL_CKPT_PATH", str(tmp_path / "ckpt"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        edl_profile.main(["--local", "--steps", "1", "--out",
+                          str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_a_line.main(["--epochs", "1"])
+    assert fit_a_line.parse_args([]).device == "cuda"
+    monkeypatch.setattr(run_suite, "probe", lambda budget: None)
+    assert run_suite.main(["--results", str(tmp_path / "r")]) == 1
+    assert not os.path.exists(tmp_path / "r")

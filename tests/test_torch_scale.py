@@ -268,3 +268,64 @@ def test_edl_scaled_once_matches_the_jax_cli():
         srv.stop()
     assert outs["port-job"] == outs["jax-job"]
     assert [d["kind"] for d in outs["port-job"]] == ["grow"]
+
+
+@pytest.mark.parametrize("pkg", ["jax", "port"])
+def test_funded_grow_waits_for_the_published_shrink(pkg):
+    """autoscale-multijob's grant: the preempted job's leader writes its
+    released pods' preempt notices, then (a drain later) publishes the
+    shrunk generation. The port's scaler holds the preempting gang's
+    grow until that publish; the JAX scaler discounts the noticed pods
+    at once and releases the grow in between, so the gang can publish
+    before the shrink does (``priority_admission_ordered`` red). Both
+    admit once the shrink is published, and both read a job whose whole
+    roster is noticed (a pause) as world 0."""
+    from edl_tpu_torch.cluster.model import Cluster, Pod
+    from edl_tpu_torch.obs.metrics import MetricsRegistry
+
+    mod = {"jax": jscaler, "port": tscaler}[pkg]
+    srv = ChildStore()
+    store = StoreClient(srv.endpoint, timeout=5.0)
+    reg = Registry(store, "a")
+
+    def publish(pods):
+        reg.set_permanent("cluster", "current", Cluster.from_pods(
+            [Pod(pod_id=p, rank=i) for i, p in enumerate(pods)],
+            stage="s%d" % len(pods)).to_json())
+
+    publish(["p0", "p1", "p2"])
+    scaler = mod.Scaler(
+        srv.endpoint, [mod.JobSpec("a", min_world=1, max_world=3)],
+        capacity=3,
+        params=mod.scale_decide.ScaleParams(alpha=0.05, gns=30.0,
+                                            hysteresis=0.02, cooldown_s=0.0),
+        stats_override=lambda job: {"gns": 30.0, "per_pod_rate": 1.0,
+                                    "goodput_ratio": 1.0},
+        registry=MetricsRegistry(), scrape_timeout=0.1)
+    try:
+        assert scaler.poll_once(now=1000.0) == []
+        scaler.add_job(mod.JobSpec("b", min_world=2, max_world=2,
+                                   priority=10))
+        acted = scaler.poll_once(now=1010.0)
+        assert [(d.job_id, d.kind, d.target) for d in acted] == [
+            ("a", mod.scale_decide.SHRINK, 1)]
+        # the leader's release: two notices, the 3-pod stage still out
+        for pid in ("p1", "p2"):
+            reg.set_permanent("preempt", pid, b'{"cause": "autoscale"}')
+        acted = [(d.job_id, d.kind, d.target)
+                 for d in scaler.poll_once(now=1011.0)]
+        if pkg == "jax":
+            assert acted == [("b", mod.scale_decide.GROW, 2)]  # too early
+            return
+        assert acted == []
+        publish(["p0"])  # the shrink is real
+        acted = scaler.poll_once(now=1012.0)
+        assert [(d.job_id, d.kind, d.target) for d in acted] == [
+            ("b", mod.scale_decide.GROW, 2)]
+        # a pause: every published pod noticed reads as world 0
+        reg.set_permanent("preempt", "p0", b'{"cause": "autoscale"}')
+        assert scaler._actual_world("a") == 0
+    finally:
+        scaler.stop()
+        store.close()
+        srv.stop()
