@@ -342,7 +342,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              edl_profile --request --steps 1 --json`` published once the
              grown cluster is (before its first step) is answered by
              every pod's worker with a ``torch.profiler`` trace.
-20. suite  - (after the tiers block, before phase resnet) the read side
+20. suite  - (beside phase tiers, once phase chaos is done) the read side
              of the port's runs: (a) ``python -m edl_tpu_torch.tools.
              run_suite`` twice (``--round 1``: every step skipped but
              ``profile_plane`` and ``lm_bench``; ``--round 2``: but
@@ -363,6 +363,31 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
              wall clock; a complete restage critical path. (c)
              ``examples/fit_a_line.py`` on the card, 3 epochs: finite
              losses that fall.
+21. benches - the elasticity and distillation cost benches, each
+             ``python -m edl_tpu_torch.tools.<name>`` in a session of its
+             own with a fresh ``EDL_RUN_ARCHIVE``: (a) (beside phase tiers)
+             ``resize_bench --schedule 1,r`` of ResNet50_vd workers at
+             224x224: both stages metered with samples/s > 0, the
+             restart's marks in order (drain, published, the new
+             worker's ready and first step; the replacement pod's
+             launcher has no worker of its own to kill, so ``killed`` is
+             absent or between drain and published), no telemetry entry
+             dropped, one bundle with backend ``cuda``; its downtime and
+             per-chip loss printed. (b)-(e) (beside phase elastic's jobs)
+             (b) ``convergence_churn --workload lm``, 2 pods static
+             against 2 -> 1 -> 2: the tool's own checks (3 stages, a
+             batch stream that differs), finite accuracies, K1-K3
+             launched in both runs' workers (paths ``convergence_static``
+             and ``convergence_churn``), its gap printed; (c)
+             ``distill_retention --backend torch`` (ResNet50_vd teachers
+             and student, one teacher stopped mid-run): every timed
+             epoch consumed every batch once, in order, and the ratio is
+             positive; (d) ``colocated_distill`` (ResNeXt101_32x16d bf16
+             teacher, ResNet50_vd student, batch 256): both img/s > 0 and
+             a finite loss; (e) ``distill_qps`` against echo teachers;
+             (c) and (d) archived as the suite runner archives a step
+             (backend ``cuda``); the cost of a seeded init drawn on the
+             CPU and copied, against the card's draw (ROADMAP §3).
 
 Then one JSON line of per-kernel results, the ``nvidia-smi`` name and
 power-limit line, and as the last line
@@ -382,8 +407,8 @@ phase pipeline's (a) and phase ctr's (b)), ``python3 chip_smoke.py
 ``--data-launched OUT_DIR -- ARGS`` phase data's workers, all started by
 the phases themselves. ``python3 chip_smoke.py --phase NAME [N]`` runs
 phase ``distill``, ``restage_planes``, ``data``, ``autoscale``,
-``chaos`` or ``suite`` alone N times after the device and build phases,
-and prints no result line.
+``chaos``, ``suite`` or ``benches`` alone N times after the device and
+build phases, and prints no result line.
 """
 
 import concurrent.futures
@@ -450,14 +475,18 @@ KERNEL_CASES = (
     ((2, 8, 1, 256, 256, 64), True, "float32"),        # tp 2 step, kv 1
     # phase data's path: the elastic_text_lm example (63 tokens, ragged)
     ((8, 4, 4, 63, 63, 16), True, "float32"),
+    # phase benches' path: the convergence LM worker at world 2 (global
+    # batch 36, 4 heads of width 12 over 48 tokens, fp32)
+    ((18, 4, 4, 48, 48, 12), True, "float32"),
 )
 FLAGSHIP_CASE = 0
 STUDENT_CASE = 9  # distill_nlp's student: fp32, head width 16
 DATA_CASE = 17
+CONVERGENCE_CASE = 18
 WIDTH_CASES = {"fp32-d12": 10, "bf16-d16": 11, "bf16-d12": 12, "fp32-d4": 13}
 # the backward pair runs on the training path: K1's cases but the served
 # buckets
-BWD_CASES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17)
+BWD_CASES = (0, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
 SOURCES = ("flash_fwd", "flash_bwd")
 SERVE_SEQ = 1024
 SERVE_ROWS = (1, 3)
@@ -7328,8 +7357,17 @@ def _json_doc(path: str):
 
 
 def _tool(argv: list, env: dict, timeout: float) -> dict:
-    """:func:`_cli` run to its end (at most ``timeout`` seconds)."""
-    return _cli_result(_cli(argv, env), timeout)
+    """:func:`_cli` run to its end (at most ``timeout`` seconds), then its
+    session killed: whatever the tool started (a bench's harness pods,
+    its teachers) ends with it."""
+    proc = _cli(argv, env)
+    try:
+        return _cli_result(proc, timeout)
+    finally:
+        try:
+            os.killpg(proc.pid, 9)
+        except ProcessLookupError:
+            pass
 
 
 def _worker_kill_run(work: str) -> str:
@@ -7519,6 +7557,238 @@ def phase_suite(torch, smi: str, wk_dir=None) -> dict:
     return out
 
 
+# phase benches: the cost benches through the port's tools at their full
+# widths and cut depths (see the module docstring)
+BENCH_RESIZE = ["--schedule", "1,r", "--interval", "20", "--tail", "10"]
+# the churn run must see its third stage before the job ends (the tool's
+# check): 8 epochs with a second of pause each outlast two 25 s stages of
+# workers that boot in 10-15 s and train an epoch in 3.5-6 s, as on the
+# card
+BENCH_CHURN = ["--workload", "lm", "--epochs", "8", "--churn_schedule",
+               "2,1,2", "--interval", "25", "--pause", "1", "--timeout",
+               "400"]
+BENCH_RETENTION = ["--backend", "torch", "--batch", "64", "--units", "8",
+                   "--epochs", "2"]
+BENCH_COLOC = ["--steps", "10"]
+BENCH_QPS = ["--batches", "60", "--batch_size", "64"]
+BENCH_WAIT_S = {"resize": 240.0, "convergence": 480.0, "retention": 300.0,
+                "coloc": 300.0, "qps": 120.0}
+CONVERGENCE_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _bench_env(runs: str) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("EDL_")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["EDL_RUN_ARCHIVE"] = runs
+    return env
+
+
+def _bundles(runs: str) -> list:
+    from edl_tpu_torch.obs import archive as run_archive
+
+    if not os.path.exists(runs):
+        return []
+    return [{k: b.get(k) for k in ("bundle", "kind", "backend")}
+            for b in run_archive.read_index(runs)]
+
+
+def phase_bench_resize(torch, smi: str) -> dict:
+    """(a) ``python -m edl_tpu_torch.tools.resize_bench`` at ``1,r``."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="edl-bench-resize-")
+    runs = os.path.join(work, "runs")
+    try:
+        res = _tool(["tools.resize_bench", *BENCH_RESIZE],
+                    _bench_env(runs), BENCH_WAIT_S["resize"])
+        bundles = _bundles(runs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    doc = res["doc"] or {}
+    stages, trans = doc.get("stages", []), doc.get("transitions", [])
+    out = {"phase": "benches_resize", "card": smi, "rc": res["rc"],
+           "seconds": res["s"], "args": BENCH_RESIZE,
+           "resize_downtime": doc.get("value"),
+           "per_chip_loss_pct": doc.get("per_chip_loss_pct"),
+           "telemetry_dropped": doc.get("telemetry_dropped"),
+           "stages": stages, "transitions": trans, "bundles": bundles}
+    emit(out)
+    check(res["rc"] == 0 and doc.get("metric") == "resize_downtime",
+          "benches (a): resize_bench rc %s: %s" % (res["rc"], res["stderr"]))
+    check(len(stages) >= 2 and all(
+        (s["samples_per_s"] or 0) > 0 and s["world"] == 1
+        for s in stages[:2]),
+          "benches (a): stages %s" % stages)
+    cur = stages[1]
+    marks = [cur["drain_ts"], cur["published_ts"], cur["ready_ts"],
+             cur["first_step_ts"]]
+    check(None not in marks and marks == sorted(marks) and (
+        cur["killed_ts"] is None
+        or cur["drain_ts"] <= cur["killed_ts"] <= cur["published_ts"]),
+          "benches (a): the restart's marks out of order: %s" % cur)
+    check(doc.get("telemetry_dropped") == 0,
+          "benches (a): %s telemetry entries dropped"
+          % doc.get("telemetry_dropped"))
+    check([(b["kind"], b["backend"]) for b in bundles]
+          == [("resize_bench", "cuda")]
+          and doc.get("bundle") == bundles[0]["bundle"],
+          "benches (a): archived bundles %s" % bundles)
+    return out
+
+
+def phase_bench_convergence(torch, smi: str) -> dict:
+    """(b) ``python -m edl_tpu_torch.tools.convergence_churn --workload
+    lm``: static against churn, K1-K3 in both runs' workers."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="edl-bench-conv-")
+    runs = os.path.join(work, "runs")
+    try:
+        res = _tool(["tools.convergence_churn", *BENCH_CHURN],
+                    _bench_env(runs), BENCH_WAIT_S["convergence"])
+        bundles = _bundles(runs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    doc = res["doc"] or {}
+    runs_ = {k: doc.get(k) or {} for k in ("static", "churn")}
+    out = {"phase": "benches_convergence", "card": smi, "rc": res["rc"],
+           "seconds": res["s"], "args": BENCH_CHURN,
+           "gap_pp": doc.get("value"),
+           "churn_stages_ok": doc.get("churn_stages_ok"),
+           "churn_perturbed_batches": doc.get("churn_perturbed_batches"),
+           "runs": {k: {f: r.get(f) for f in (
+               "test_accuracy", "test_loss", "steps", "stages_seen",
+               "worker_incarnations", "resume_steps", "stream_digest",
+               "world_at_finish", "launches")} for k, r in runs_.items()},
+           "bundles": bundles,
+           "launches": {k: r.get("launches") or {} for k, r in runs_.items()}}
+    emit(out)
+    check(res["rc"] == 0 and doc.get("metric") == "convergence_churn_lm_gap",
+          "benches (b): convergence_churn rc %s: %s"
+          % (res["rc"], res["stderr"]))
+    check(doc.get("churn_stages_ok") is True
+          and doc.get("churn_perturbed_batches") is True,
+          "benches (b): churn saw %s stages, perturbed %s"
+          % (runs_["churn"].get("stages_seen"),
+             doc.get("churn_perturbed_batches")))
+    for name, r in runs_.items():
+        check(all(math.isfinite(r.get(k, float("nan")))
+                  for k in ("test_accuracy", "test_loss")),
+              "benches (b): %s accuracy %s loss %s"
+              % (name, r.get("test_accuracy"), r.get("test_loss")))
+        check(all((r.get("launches") or {}).get(k, 0) > 0
+                  for k in CONVERGENCE_KERNELS),
+              "benches (b): %s launches %s" % (name, r.get("launches")))
+    check([(b["kind"], b["backend"]) for b in bundles]
+          == [("convergence_churn", "cuda")],
+          "benches (b): archived bundles %s" % bundles)
+    return out
+
+
+def phase_bench_distill(torch, smi: str) -> dict:
+    """(c) ``distill_retention --backend torch``, (d)
+    ``colocated_distill``, (e) ``distill_qps``, one after another (each
+    a device measurement), each result archived as the suite runner
+    archives a step."""
+    import shutil
+    import tempfile
+
+    from edl_tpu_torch.tools import run_suite
+
+    work = tempfile.mkdtemp(prefix="edl-bench-distill-")
+    runs = os.path.join(work, "runs")
+    env = _bench_env(runs)
+    res = {}
+    try:
+        for name, argv, wait in (
+                ("distill_retention", ["tools.distill_retention",
+                                       *BENCH_RETENTION], "retention"),
+                ("colocated_distill", ["tools.colocated_distill",
+                                       *BENCH_COLOC], "coloc"),
+                ("distill_qps", ["tools.distill_qps", *BENCH_QPS], "qps")):
+            res[name] = _tool(argv, env, BENCH_WAIT_S[wait])
+            if res[name]["doc"] is not None:
+                path = os.path.join(work, name + ".json")
+                with open(path, "w") as fh:
+                    fh.write(json.dumps(res[name]["doc"]) + "\n")
+                run_suite.archive_step(name, path, root=runs)
+        bundles = _bundles(runs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    draw = _init_draw_cost(torch)
+    ret, col, qps = (res[k]["doc"] or {} for k in (
+        "distill_retention", "colocated_distill", "distill_qps"))
+    out = {"phase": "benches_distill", "card": smi,
+           "seconds": {k: r["s"] for k, r in res.items()},
+           "rc": {k: r["rc"] for k, r in res.items()},
+           "args": {"distill_retention": BENCH_RETENTION,
+                    "colocated_distill": BENCH_COLOC,
+                    "distill_qps": BENCH_QPS},
+           "distill_retention": ret, "colocated_distill": col,
+           "distill_qps": qps, "bundles": bundles, "init_draw": draw}
+    emit(out)
+    for name, r in res.items():
+        check(r["rc"] == 0 and r["doc"] is not None,
+              "benches: %s rc %s: %s" % (name, r["rc"], r["stderr"]))
+    # (c)
+    check(ret.get("epochs_exact") is True and ret.get("teacher_killed") is True
+          and ret.get("value", 0) > 0 and ret.get("platform") == "gpu",
+          "benches (c): distill_retention %s" % ret)
+    # (d)
+    check(col.get("pure_img_s", 0) > 0 and col.get("coloc_img_s", 0) > 0
+          and math.isfinite(col.get("loss", float("nan")))
+          and math.isfinite(col.get("kd_kl", float("nan"))),
+          "benches (d): colocated_distill %s" % col)
+    # (e)
+    check(qps.get("batches") == int(BENCH_QPS[1])
+          and qps.get("steps_per_s", 0) > 0,
+          "benches (e): distill_qps %s" % qps)
+    check(sorted(b["kind"] for b in bundles)
+          == ["colocated_distill", "distill_retention"]
+          and all(b["backend"] == "cuda" for b in bundles),
+          "benches (c, d): archived bundles %s" % bundles)
+    return out
+
+
+def _init_draw_cost(torch) -> dict:
+    """ROADMAP §3's departure, priced: ``train/step.init_weights`` draws
+    a seeded init from the card's generator (another draw than the CPU's
+    for the same seed); a CPU draw copied to the card would give every
+    platform the same weights. Seconds of each at the flagship's 12
+    layers and phase elastic's 4, with the parameter count."""
+    from edl_tpu_torch.tools import lm_bench
+
+    out = {}
+    for name, cfg in (("flagship", FLAGSHIP_TRAIN), ("elastic", ELASTIC_TRAIN)):
+        rec = {}
+        for where in ("cuda", "cpu"):
+            model = lm_bench.build_model(cfg, where)
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            model.init_weights(torch.Generator(device=where).manual_seed(0))
+            if where == "cpu":
+                model.to("cuda")
+            torch.cuda.synchronize()
+            rec[where + "_draw_s"] = time.monotonic() - t
+            rec["params"] = sum(p.numel() for p in model.parameters())
+            del model
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_benches(torch, smi: str) -> dict:
+    """``--phase benches``: (a)-(e) one after another."""
+    t0 = time.monotonic()
+    out = {"resize": phase_bench_resize(torch, smi),
+           "convergence": phase_bench_convergence(torch, smi),
+           "distill": phase_bench_distill(torch, smi)}
+    emit({"phase": "benches", "seconds": time.monotonic() - t0})
+    return out
+
+
 def examples_main(name: str, argv: list):
     """``edl_tpu_torch.examples.<name>.main(argv)``."""
     import importlib
@@ -7575,11 +7845,20 @@ def _data_paths(data: dict, scale: dict, name: str) -> dict:
             "autoscale": scale["launches"][name]}
 
 
+def _convergence_paths(conv: dict, name: str) -> dict:
+    """Phase benches' (b) launches of kernel ``name``: every worker of
+    the static run and of the churned one (killed ones to their last
+    finished epoch)."""
+    return {"convergence_" + run: conv["launches"][run][name]
+            for run in ("static", "churn")}
+
+
 def phase_alone(torch, name: str, repeat: int) -> int:
     """``chip_smoke.py --phase NAME [N]``: phase ``distill``,
     ``restage_planes`` (without phase elastic's cold grow beside it),
-    ``data``, ``autoscale``, ``chaos`` or ``suite`` (over a worker-kill
-    run of its own) N times after the device and build phases,
+    ``data``, ``autoscale``, ``chaos``, ``suite`` (over a worker-kill
+    run of its own) or ``benches`` ((a)-(e) one after another) N times
+    after the device and build phases,
     each repeat's failed check printed and counted; exit 1 if any failed.
     Prints no result line."""
     dev = phase_device(torch)
@@ -7591,6 +7870,7 @@ def phase_alone(torch, name: str, repeat: int) -> int:
            "autoscale": lambda: phase_autoscale(torch, dev["nvidia_smi"]),
            "chaos": lambda: phase_chaos(torch, dev["nvidia_smi"]),
            "suite": lambda: phase_suite(torch, dev["nvidia_smi"]),
+           "benches": lambda: phase_benches(torch, dev["nvidia_smi"]),
            }[name]
     failed = 0
     for i in range(repeat):
@@ -7675,11 +7955,15 @@ def main() -> int:
     train = phase_train(torch, dev["nvidia_smi"])
     done("train")
     # Phases that mostly wait on process starts, leases and holds, and
-    # check no time, run beside the long jobs of phases elastic and tiers
+    # check no time, run beside the long jobs of phases elastic and tiers,
+    # each taking the first free thread of its block in the order given
     # (an exception of any is raised once all of its block end): phase
-    # autoscale, with phase data beside it, beside phase elastic's two
-    # jobs once its reference has run alone; phases restage_planes and
-    # chaos beside phase tiers.
+    # benches' (b) convergence runs from the block's start, phases
+    # autoscale and data once phase elastic's reference has run alone,
+    # then phase benches' (c)-(e) distillation benches, beside phase
+    # elastic's two jobs; phases chaos and restage_planes, then phase
+    # suite (over chaos's worker-kill run) and phase benches' (a) resize
+    # drill, beside phase tiers.
     beside_s = {}
 
     def timed(name, fn, *args):
@@ -7688,33 +7972,35 @@ def main() -> int:
         beside_s[name] = time.monotonic() - t
         return out
 
-    running = []
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    smi = dev["nvidia_smi"]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        running = [pool.submit(timed, "benches_convergence",
+                               phase_bench_convergence, torch, smi)]
         elastic = phase_elastic(
-            torch, dev["nvidia_smi"], train,
+            torch, smi, train,
             after_reference=lambda: running.extend([
-                pool.submit(timed, "autoscale", phase_autoscale, torch,
-                            dev["nvidia_smi"]),
-                pool.submit(timed, "data", phase_data, torch,
-                            dev["nvidia_smi"])]))
-        scale, data = [fut.result() for fut in running]
-    done("elastic|autoscale,data")
+                pool.submit(timed, name, fn, torch, smi) for name, fn in (
+                    ("autoscale", phase_autoscale), ("data", phase_data),
+                    ("benches_distill", phase_bench_distill))]))
+        convergence, scale, data, _ = [fut.result() for fut in running]
+    done("elastic|autoscale,data,benches")
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        chaos = pool.submit(timed, "chaos", phase_chaos, torch,
-                            dev["nvidia_smi"])
+        chaos_run = pool.submit(timed, "chaos", phase_chaos, torch, smi)
         planes = pool.submit(timed, "restage_planes", phase_restage_planes,
-                             torch, dev["nvidia_smi"], build["seconds"])
-        tiers = phase_tiers(torch, dev["nvidia_smi"])
-        chaos = chaos.result()
-        planes = planes.result()
+                             torch, smi, build["seconds"])
+        suite = pool.submit(timed, "suite", lambda: phase_suite(
+            torch, smi, chaos_run.result()["worker_kill_dir"]))
+        resize = pool.submit(timed, "benches_resize", phase_bench_resize,
+                             torch, smi)
+        tiers = phase_tiers(torch, smi)
+        chaos, planes, suite, _ = (f.result() for f in (
+            chaos_run, planes, suite, resize))
     emit({"phase": "restage_planes_grow_vs_elastic",
           "planes_bump_to_first_step_s": planes["grow"][
               "bump_to_first_step_s"],
           "elastic_cold_grow_s": [x["bump_to_first_step_s"] for x in elastic[
               "cold"]["time_to_recover"] if x["world"] == 2]})
-    done("tiers|chaos,restage_planes")
-    suite = phase_suite(torch, dev["nvidia_smi"], chaos["worker_kill_dir"])
-    done("suite")
+    done("tiers|chaos,restage_planes,suite,benches")
     phase_resnet(torch, dev["nvidia_smi"])
     done("resnet")
     phase_fsdp(torch, dev["nvidia_smi"])
@@ -7740,6 +8026,8 @@ def main() -> int:
     bflag = bwd[BWD_CASES.index(FLAGSHIP_CASE)]
     w16, bw16 = kernels[STUDENT_CASE], bwd[BWD_CASES.index(STUDENT_CASE)]
     wdata, bwdata = kernels[DATA_CASE], bwd[BWD_CASES.index(DATA_CASE)]
+    wconv = kernels[CONVERGENCE_CASE]
+    bwconv = bwd[BWD_CASES.index(CONVERGENCE_CASE)]
     nlp = distill["nlp"]
     line = [{
         "name": "flash_fwd",
@@ -7762,7 +8050,8 @@ def main() -> int:
                              **_pp_paths(pipe, "flash_fwd"),
                              **_data_paths(data, scale, "flash_fwd"),
                              "harness": chaos["launches"]["flash_fwd"],
-                             "suite": suite["launches"]["flash_fwd"]},
+                             "suite": suite["launches"]["flash_fwd"],
+                             **_convergence_paths(convergence, "flash_fwd")},
         "max_abs_err": max(r["max_abs_err"] for r in kernels
                            if r["dtype"] == "bfloat16"),
         "ms": flag["ms"],
@@ -7778,6 +8067,10 @@ def main() -> int:
             "bound_by", "library_ms")},
         # phase data's example, fp32 at head width 16 over 63 tokens
         "data_example": {k: wdata[k] for k in (
+            "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        # phase benches' convergence LM worker, fp32 at head width 12
+        "convergence_lm": {k: wconv[k] for k in (
             "shape", "dtype", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
         # widths without a body of their own, zero-padded to the next one
@@ -7805,7 +8098,8 @@ def main() -> int:
                                  **_pp_paths(pipe, name),
                                  **_data_paths(data, scale, name),
                                  "harness": chaos["launches"][name],
-                                 "suite": suite["launches"][name]},
+                                 "suite": suite["launches"][name],
+                                 **_convergence_paths(convergence, name)},
             "max_abs_err": max(r["max_abs_err"][gname] for r in bwd
                                for gname in grads
                                if r["dtype"] == "bfloat16"),
@@ -7832,6 +8126,13 @@ def main() -> int:
                 "bound_ms": bwdata["bounds"][key]["bound_ms"],
                 "bound_by": bwdata["bounds"][key]["bound_by"],
                 "library_ms": bwdata["library_ms"]},
+            "convergence_lm": {
+                "shape": bwconv["shape"], "dtype": bwconv["dtype"],
+                "max_abs_err": max(bwconv["max_abs_err"][g] for g in grads),
+                "ms": bwconv["%s_ms" % key], "plain_ms": bwconv["plain_ms"],
+                "bound_ms": bwconv["bounds"][key]["bound_ms"],
+                "bound_by": bwconv["bounds"][key]["bound_by"],
+                "library_ms": bwconv["library_ms"]},
             "widths": {wname: {
                 "shape": r["shape"], "dtype": r["dtype"],
                 "max_abs_err": max(r["max_abs_err"][g] for g in grads),

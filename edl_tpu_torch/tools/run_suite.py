@@ -26,24 +26,37 @@ Steps (priority order):
 3. lm_bench            TransformerLM tokens/s + MFU at its own default
                        batch, with the ``--remat none`` and
                        ``--kv_heads 4`` variants
-4. decode_bench        KV-cache decode tokens/s
-5. grad_corrupt_drill, autoscale_churn_drill, hbm_oom_drill
+4. distill_retention, distill_retention_echo
+                       service distillation against pure training:
+                       ResNet50_vd teachers behind the serving stack with
+                       one stopped mid-run, then the echo teacher alone
+                       (the pipeline's own cost, 3 trials)
+5. resize_bench, resize_bench_aot_control
+                       the 1,r,r restart drill of ResNet50_vd workers
+                       (standby shells on), then the same schedule with
+                       the ladder and the kernel-cache exchange off
+6. colocated_distill   ResNeXt101_32x16d teacher and ResNet50_vd student
+                       in one step on the card
+7. decode_bench        KV-cache decode tokens/s
+8. grad_corrupt_drill, autoscale_churn_drill, hbm_oom_drill
                        the numerics, scale and memory planes' drills
                        (``chaos_run``, the trainee on the card)
-6. serve_slo_bench, serve_slo_churn_drill
+9. serve_slo_bench, serve_slo_churn_drill
                        the serving plane's SLO bench and its churn drill
-7. store_consistency_soak
+10. store_consistency_soak
                        the store failover drills, 5 seeds each
-8. edl_report --check  the closing gate over the archive (``runs/`` or
+11. edl_report --check the closing gate over the archive (``runs/`` or
                        ``EDL_RUN_ARCHIVE``), its verdict kept as
                        ``edl_report_r{N}.json``: a regressed metric turns
                        the suite red
 
-The JAX suite's ``lm_profile``, ``distill_retention`` (×2),
-``resize_bench`` (×3), ``lm_long_sweep`` and ``colocated_distill`` steps
-wait for their tools' ports; its dispatch-table steps
-(``attention_bench --calibrate``, the block sweeps) and ``edl_lint``
-have no counterpart here.
+The JAX suite's ``lm_profile`` and ``lm_long_sweep`` steps wait for their
+tools' ports. Its ``resize_bench_aot`` step differs from
+``resize_bench`` only by XLA's portable cache keys; the port's kernel
+libraries are named by their sources, portable between hosts by
+construction, so ``resize_bench`` is that step here. Its dispatch-table
+steps (``attention_bench --calibrate``, the block sweeps) and
+``edl_lint`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -59,6 +72,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 RESULTS = os.path.join(REPO, "bench_results")
 BACKEND = "cuda"
+# resize_bench's seconds a schedule entry: a cold ResNet50_vd worker's
+# start on the card (imports, the model, cuDNN's first calls) and a
+# steady stretch after it
+RESIZE_INTERVAL_S = 60
 
 
 def probe(timeout: float = 90.0) -> str | None:
@@ -135,15 +152,16 @@ def suite_archive_root():
     return run_archive.archive_root(default=os.path.join(REPO, "runs"))
 
 
-def archive_step(name, out_path):
+def archive_step(name, out_path, root=None):
     """Every suite step's result JSON becomes an indexed run-archive
-    bundle (kind = step name, backend = cuda), so round-over-round
-    numbers on the card trend and gate via edl_report — best-effort: a
-    broken archive never fails the measurement."""
+    bundle (kind = step name, backend = cuda) under ``root`` (default:
+    the suite's archive root), so round-over-round numbers on the card
+    trend and gate via edl_report — best-effort: a broken archive never
+    fails the measurement."""
     try:
         from edl_tpu_torch.obs import archive as run_archive
 
-        root = suite_archive_root()
+        root = root or suite_archive_root()
         if not root:
             return
         docs = []
@@ -246,6 +264,30 @@ def steps(py, r, results):
         # GQA training variant: grouped kernels, kv projections /4
         ("lm_bench_gqa", tool("lm_bench", "--kv_heads", "4"),
          "lm_gqa_cuda_r%d.json" % r, 2400, None),
+        # service distillation vs pure training (ResNet50_vd teachers on
+        # the card, one stopped mid-run), then the echo teacher: the
+        # pipeline's own cost, 3 trials and their spread
+        ("distill_retention", tool("distill_retention", "--backend", "torch"),
+         "distill_retention_cuda_r%d.json" % r, 900, None),
+        ("distill_retention_echo",
+         tool("distill_retention", "--backend", "echo", "--trials", "3"),
+         "distill_retention_echo_cuda_r%d.json" % r, 900, None),
+        # the one-card restart drill (a world > 1 would time-slice the
+        # card); an interval holds a cold ResNet50_vd worker's start and
+        # a steady stretch after it. Standby shells are on; the control
+        # turns the ladder and the kernel-cache exchange off. Both
+        # archive their own bundle (kinds resize_bench and
+        # resize_bench_noaot)
+        ("resize_bench",
+         tool("resize_bench", "--schedule", "1,r,r", "--interval",
+              str(RESIZE_INTERVAL_S)),
+         "resize_cuda_r%d.json" % r, 900, archive),
+        ("resize_bench_aot_control",
+         tool("resize_bench", "--schedule", "1,r,r", "--interval",
+              str(RESIZE_INTERVAL_S), "--no-aot"),
+         "resize_aot_control_cuda_r%d.json" % r, 900, archive),
+        ("colocated_distill", tool("colocated_distill"),
+         "colocated_cuda_r%d.json" % r, 900, None),
         # KV-cache decode: the GQA/MQA bandwidth story in tokens/s
         ("decode_bench", tool("decode_bench"),
          "decode_cuda_r%d.jsonl" % r, 2400, None),

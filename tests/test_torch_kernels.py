@@ -61,6 +61,10 @@ CASES = [
                  id="bf16-d12-gqa-ragged"),
     pytest.param((2, 4, 4, 64, 64, 4), True, torch.float32, id="fp32-d4"),
     pytest.param((1, 4, 4, 100, 100, 48), True, torch.bfloat16, id="bf16-d48"),
+    # the convergence LM worker at world 2 (global batch 36, d_model 48
+    # over 4 heads, 48 tokens, fp32)
+    pytest.param((18, 4, 4, 48, 48, 12), True, torch.float32,
+                 id="fp32-d12-convergence-lm"),
 ]
 
 # the backward kernels' tiles are 64 rows (K2: query rows, K3: keys) and

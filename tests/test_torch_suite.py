@@ -22,9 +22,18 @@ from edl_tpu_torch.tools import run_suite
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = ["profile_plane", "bench", "numerics_overhead", "lm_bench",
-         "lm_bench_noremat", "lm_bench_gqa", "decode_bench",
+         "lm_bench_noremat", "lm_bench_gqa", "distill_retention",
+         "distill_retention_echo", "resize_bench", "resize_bench_aot_control",
+         "colocated_distill", "decode_bench",
          "grad_corrupt_drill", "autoscale_churn_drill", "hbm_oom_drill",
          "serve_slo_bench", "serve_slo_churn_drill", "store_consistency_soak"]
+# the JAX suite's steps the port leaves out: its tools not yet ported
+# (lm_profile, lm_long_sweep), XLA's portable cache keys
+# (resize_bench_aot), the dispatch tables and the JAX package's lint
+NOT_PORTED = {"lm_profile", "lm_long_sweep", "resize_bench_aot",
+              "attention_bench", "attention_block_sweep",
+              "attention_block_sweep_flash2", "attention_flash_8k_probe",
+              "edl_lint"}
 
 
 def test_no_card_measures_nothing(tmp_path):
@@ -123,6 +132,32 @@ def test_steps_are_the_ported_tools(tmp_path):
     assert cmds["lm_bench_gqa"] == ["--kv_heads", "4"]
     assert cmds["profile_plane"][:1] == ["--local"]
     assert "--device" not in sum(cmds.values(), [])  # the card throughout
+    assert cmds["distill_retention"] == ["--backend", "torch"]
+    assert cmds["distill_retention_echo"] == ["--backend", "echo",
+                                              "--trials", "3"]
+    interval = str(run_suite.RESIZE_INTERVAL_S)
+    assert cmds["resize_bench"] == ["--schedule", "1,r,r", "--interval",
+                                    interval]
+    assert cmds["resize_bench_aot_control"] == cmds["resize_bench"] + [
+        "--no-aot"]
+    # the resize drills archive their own bundles; the suite's gate reads
+    # them from the suite's archive root
+    extras = {s[0]: s[4] for s in series}
+    assert extras["resize_bench"] == extras["grad_corrupt_drill"]
+
+
+def test_steps_are_the_jax_suites_less_the_unported():
+    """The port's step names, in order, are ``tools/run_tpu_suite.py``'s
+    less the steps whose tools the port does not have."""
+    import re
+
+    with open(os.path.join(REPO, "tools", "run_tpu_suite.py")) as f:
+        src = f.read()
+    body = src[src.index("    steps = ["):src.index("    done = 0")]
+    jax_steps = re.findall(r'^\s+\("(\w+)",', body, re.M)
+    assert len(jax_steps) == len(set(jax_steps)) == 26, jax_steps
+    assert NOT_PORTED <= set(jax_steps)
+    assert [n for n in jax_steps if n not in NOT_PORTED] == STEPS
 
 
 def test_cli_help():
